@@ -1,4 +1,5 @@
-"""Carry layer state between the JAX package and the port.
+"""Carry layer state and tracked scenes between the JAX package and the
+port.
 
 The JAX ``LayerState`` holds keys as u32 columns (``(hi, lo)`` for 64-bit
 specs), u32 ids and aux, and scalar count and flags.  Its fields travel as
@@ -16,6 +17,7 @@ import torch
 
 from .index import IndexSpec, key_from_columns, key_to_columns
 from .layer import LayerState
+from .update import TrackedScene
 
 
 def layer_state_from_jax(spec: IndexSpec, fields: Mapping[str, Any],
@@ -55,3 +57,36 @@ def layer_state_to_numpy(spec: IndexSpec, state: LayerState
         "invalid_count": np.int32(int(state.invalid_count)),
         "overflow": np.bool_(bool(state.overflow)),
     }
+
+
+_TRACKED_ARRAYS = ("bounds_min", "bounds_max", "sig_depth", "sig_tmin",
+                   "sig_tmax", "sig_contained")
+
+
+def tracked_scene_from_jax(spec: IndexSpec, fields: Mapping[str, Any],
+                           device) -> TrackedScene:
+    """The port's :class:`~broadphase_tpu_torch.update.TrackedScene` for a
+    JAX ``TrackedScene``'s numpy fields: ``state`` is a mapping as
+    :func:`layer_state_from_jax` takes, the other fields are arrays with
+    the JAX field names (u32 ids and signatures, f32 bounds, bool
+    containment)."""
+    def arr(name):
+        x = np.array(fields[name])
+        if x.dtype == np.uint32:
+            x = x.astype(np.int64)
+        return torch.as_tensor(x, device=device)
+
+    return TrackedScene(layer_state_from_jax(spec, fields["state"], device),
+                        arr("ids"), *(arr(f) for f in _TRACKED_ARRAYS))
+
+
+def tracked_scene_to_numpy(spec: IndexSpec, tracked: TrackedScene
+                           ) -> Dict[str, Any]:
+    """Inverse of :func:`tracked_scene_from_jax`: the fields as the JAX
+    package holds them."""
+    out = {"state": layer_state_to_numpy(spec, tracked.state),
+           "ids": tracked.ids.cpu().numpy().astype(np.uint32)}
+    for name in _TRACKED_ARRAYS:
+        x = getattr(tracked, name).cpu().numpy()
+        out[name] = x.astype(np.uint32) if x.dtype == np.int64 else x
+    return out

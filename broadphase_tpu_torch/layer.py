@@ -27,6 +27,7 @@ from . import geom
 from .index import IndexSpec, PAD_KEY, depth_of, keys_to_numpy, tz_pack
 from .ops.build import emit_build
 from .ops.compact import stream_compact
+from .ops.expand import expand_pairs
 from .ops.expand2 import expand_pairs_prepped
 from .ops.prep import prep_runs
 from .ops.search import descendant_run_ends
@@ -69,10 +70,31 @@ def _host(value, dtype) -> torch.Tensor:
     return torch.tensor(value, dtype=dtype)
 
 
+def resolve_device(device, *inputs) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    device of the first tensor among ``inputs``, else the CUDA card.
+    Raises when that is a CUDA device and no card is present: pass
+    ``device="cpu"`` to run on the CPU."""
+    if device is None:
+        device = next((x.device for x in inputs
+                       if isinstance(x, torch.Tensor)), "cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
+def capacity_of(state: LayerState) -> int:
+    return state.ids.shape[0]
+
+
 def make_layer(spec: IndexSpec, capacity: int, min_depth: int = 0,
                device=None) -> LayerState:
-    """An empty layer of ``capacity`` entries on ``device``."""
+    """An empty layer of ``capacity`` entries on ``device`` (default: the
+    card)."""
     del spec  # every spec shares the int64 key layout
+    device = resolve_device(device)
     return LayerState(
         keys=torch.full((capacity,), PAD_KEY, dtype=torch.int64,
                         device=device),
@@ -106,11 +128,11 @@ class LayerBuilder:
         return make_layer(spec, cap, self.min_depth, device)
 
     def build(self, spec: IndexSpec, system_min, system_max,
-              bounds_min, bounds_max, ids) -> LayerState:
+              bounds_min, bounds_max, ids, device=None) -> LayerState:
         return build(spec, system_min, system_max, bounds_min, bounds_max,
                      ids, slots_per_axis=self.slots_per_axis,
                      min_depth=self.min_depth,
-                     out_capacity=self.index_capacity)
+                     out_capacity=self.index_capacity, device=device)
 
     def scan(self, spec: IndexSpec, state: LayerState
              ) -> Tuple[LayerState, ScanResult]:
@@ -125,16 +147,14 @@ def build(spec: IndexSpec, system_min, system_max, bounds_min, bounds_max,
           ids, slots_per_axis: int = 2, min_depth: int = 0,
           out_capacity: Optional[int] = None, device=None) -> LayerState:
     """Fresh sorted layer from (N, dim) f32 bounds and (N,) ids (u32
-    values), on ``device`` (default: the bounds' device, else the CPU).
+    values), on ``device`` (default: the device of the first tensor among
+    the bounds and ids, else the card; see :func:`resolve_device`).
     The tree holds ``out_capacity`` entries (default
     ``N * slots_per_axis**dim``); ``overflow`` is set when live cells were
     cut or an object needed more than ``slots_per_axis`` cells on some
     axis.  Objects not inside the system box are dropped and counted in
     ``invalid_count``."""
-    if device is None:
-        device = bounds_min.device if isinstance(bounds_min, torch.Tensor) \
-            else "cpu"
-    dev = torch.device(device)
+    dev = resolve_device(device, bounds_min, bounds_max, ids)
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -246,12 +266,24 @@ def _finish_pairs(a, b, valid, pair_capacity: int, emit_capacity: int,
     return ScanResult(out_a, out_b, count, pair_overflow | extra_overflow)
 
 
+def runs_v2(e: torch.Tensor, count) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """(starts, run, total) of the v2 expansion from the run ends e:
+    ``run[j] = max(min(e[j], count) - j - 1, 0)`` for j < count, its
+    exclusive prefix sum and its sum, int64."""
+    lane = torch.arange(e.shape[0], dtype=torch.int64, device=e.device)
+    em = torch.minimum(e.to(torch.int64), count)
+    run = torch.where(lane < count, (em - (lane + 1)).clamp(min=0), 0)
+    starts_incl = torch.cumsum(run, 0)
+    return starts_incl - run, run, starts_incl[-1]
+
+
 def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                count: torch.Tensor, pair_capacity: int,
                extra_overflow: Optional[torch.Tensor] = None,
                aux: Optional[torch.Tensor] = None,
                emit_capacity: Optional[int] = None,
-               canonical: bool = True) -> ScanResult:
+               canonical: bool = True, expand: str = "v3") -> ScanResult:
     """Pair expansion over a sorted tree (``broadphase_tpu.layer.scan_pairs``,
     its kernel path).
 
@@ -262,7 +294,14 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     2^24 - 1.  ``emit_capacity`` (>= ``pair_capacity``) bounds the raw
     emissions; ``canonical=False`` returns the unique pairs in emission
     order without the canonical sort.
+
+    ``expand="v2"`` takes the JAX package's ``BROADPHASE_EXPAND=v2`` branch
+    instead: run lengths and their prefix sum in torch, then the v2
+    expansion kernel (``ops/expand.py``), which has no emit-once rule, so
+    duplicate emissions survive into ``canonical=False`` output.
     """
+    if expand not in ("v2", "v3"):
+        raise ValueError(f"expand must be 'v2' or 'v3', got {expand!r}")
     cap = ids.shape[0]
     dev = ids.device
     emit_cap = max(int(emit_capacity) if emit_capacity is not None
@@ -279,6 +318,18 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     dep = depth_of(spec, keys)
     e = descendant_run_ends(spec, keys, dep)
     lane = torch.arange(cap, dtype=torch.int64, device=dev)
+    if expand == "v2":
+        # broadphase_tpu/layer.py:980-998: run lengths, their exclusive
+        # prefix sum, and the expansion kernel with no rule
+        starts, run, total = runs_v2(e, count)
+        # the JAX package's int32 prefix sum wraps exactly when
+        # total >= 2^31
+        pair_overflow = (total >= 2 ** 31) | (total > emit_cap)
+        a, b = expand_pairs(ids, starts, run, total, emit_cap)
+        t = torch.arange(emit_cap, dtype=torch.int64, device=dev)
+        valid = (t < total) & (a != b)
+        return _finish_pairs(a, b, valid, pair_capacity, emit_cap,
+                             pair_overflow, extra_overflow, canonical)
     max_id = torch.where(lane < count, ids, 0).max()
     aux_arr = aux if aux is not None else torch.zeros(cap, dtype=torch.int32,
                                                       device=dev)
@@ -295,17 +346,31 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
 
 
 def scan(spec: IndexSpec, state: LayerState, pair_capacity: int,
-         emit_capacity: Optional[int] = None, canonical: bool = True
-         ) -> Tuple[LayerState, ScanResult]:
+         emit_capacity: Optional[int] = None, canonical: bool = True,
+         expand: str = "v3") -> Tuple[LayerState, ScanResult]:
     """All-pairs candidate scan (``broadphase_tpu.layer.scan``): the sorted,
     deduplicated (later id, earlier id) pair list, or with
-    ``canonical=False`` the same unique pairs in emission order."""
+    ``canonical=False`` the same unique pairs in emission order.
+    ``expand`` selects the expansion as :func:`scan_pairs` says."""
     state = sort(spec, state)
     result = scan_pairs(spec, state.keys, state.ids, state.count,
                         pair_capacity, extra_overflow=state.overflow,
                         aux=state.aux, emit_capacity=emit_capacity,
-                        canonical=canonical)
+                        canonical=canonical, expand=expand)
     return state, result
+
+
+def layers_equal(spec: IndexSpec, a: LayerState, b: LayerState) -> bool:
+    """Host-side equality as ``broadphase_tpu.layer.layers_equal`` defines
+    it: min_depth, the sorted flag and the live tree (keys and ids); the
+    overflow and invalid counters are not compared."""
+    ka, ia, ca = tree_to_numpy(spec, a)
+    kb, ib, cb = tree_to_numpy(spec, b)
+    return (int(a.min_depth) == int(b.min_depth)
+            and bool(a.sorted) == bool(b.sorted)
+            and ca == cb
+            and bool(np.array_equal(ka, kb))
+            and bool(np.array_equal(ia, ib)))
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "bpt_runends": "ppppp" + "ii" + "p",
     "bpt_prep": "pppp" + "pppp" + "pp" + "i" + "p",
     "bpt_expand": "pppppppppp" + "ii" + "p",
+    "bpt_merge": "ppppp" + "ppp" + "pppp" + "iii" + "p",
+    "bpt_expand_v2": "ppppp" + "ii" + "p",
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,8 @@
-"""On-card smoke test of broadphase_tpu_torch: builds the five CUDA kernels,
-holds each against its plain PyTorch version, and drives the build + scan
-step at 30k and 1M boxes against the C++ oracle.
+"""On-card smoke test of broadphase_tpu_torch: builds the seven CUDA kernels,
+holds each against its plain PyTorch version, drives the build + scan step
+at 30k and 1M boxes against the C++ oracle, the v2 scan at 1M, and the
+temporal-coherence update path at 1M boxes and four churn fractions
+against a fresh build and the oracle.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -25,32 +27,54 @@ import numpy as np
 import torch
 
 from broadphase_tpu_torch import (Index32_2D, Index64_2D, Index64_3D,
-                                  _jaxfree, geom, layer)
-from broadphase_tpu_torch.index import depth_of
+                                  bench_caps, geom, layer)
+from broadphase_tpu_torch import oracle as native
+from broadphase_tpu_torch import update as upd
+from broadphase_tpu_torch.index import PAD_KEY, depth_of
 from broadphase_tpu_torch.ops import _cuda, search
 from broadphase_tpu_torch.ops.build import emit_build, emit_build_plain
 from broadphase_tpu_torch.ops.compact import (stream_compact,
                                               stream_compact_plain)
+from broadphase_tpu_torch.ops.expand import expand_pairs, expand_pairs_plain
 from broadphase_tpu_torch.ops.expand2 import (expand_pairs_prepped,
                                               expand_pairs_prepped_plain)
+from broadphase_tpu_torch.ops.merge import (merge_cancel_compact,
+                                            merge_cancel_compact_plain)
 from broadphase_tpu_torch.ops.prep import prep_runs, prep_runs_plain
 from broadphase_tpu_torch.ops.runends import run_ends, run_ends_plain
 
 SPEC = Index64_3D
 KERNELS = {
-    # name: (wrapper, source, TPU kernel it replaces)
+    # name: (wrapper, source, TPU kernel it replaces, path whose launches
+    # the kernels line reports)
     "emit_build": (emit_build, "broadphase_tpu_torch/csrc/build.cu",
-                   "broadphase_tpu/ops/pallas_build.py:290"),
+                   "broadphase_tpu/ops/pallas_build.py:290", "step"),
     "run_ends": (run_ends, "broadphase_tpu_torch/csrc/runends.cu",
-                 "broadphase_tpu/ops/pallas_runends.py:103"),
+                 "broadphase_tpu/ops/pallas_runends.py:103", "step"),
     "prep_runs": (prep_runs, "broadphase_tpu_torch/csrc/prep.cu",
-                  "broadphase_tpu/ops/pallas_prep.py:173"),
+                  "broadphase_tpu/ops/pallas_prep.py:173", "step"),
     "expand_pairs_prepped": (expand_pairs_prepped,
                              "broadphase_tpu_torch/csrc/expand2.cu",
-                             "broadphase_tpu/ops/pallas_expand2.py:307"),
+                             "broadphase_tpu/ops/pallas_expand2.py:307",
+                             "step"),
     "stream_compact": (stream_compact, "broadphase_tpu_torch/csrc/compact.cu",
-                       "broadphase_tpu/ops/pallas_compact.py:200"),
+                       "broadphase_tpu/ops/pallas_compact.py:200", "step"),
+    "merge_cancel_compact": (merge_cancel_compact,
+                             "broadphase_tpu_torch/csrc/merge.cu",
+                             "broadphase_tpu/ops/pallas_merge.py:263",
+                             "frame"),
+    "expand_pairs": (expand_pairs, "broadphase_tpu_torch/csrc/expand.cu",
+                     "broadphase_tpu/ops/pallas_expand.py:203", "scan_v2"),
 }
+
+# The least time the card could take: the
+# bytes a function must move at the H100 SXM's 3.35 TB/s, or its integer
+# operations at 132 SMs x 64 INT32 lanes x 1.98 GHz, whichever is longer.
+# Every kernel here does a few integer operations per 8-byte element, far
+# below the ~5 operations per byte at which the lanes would limit, so the
+# operations are counted as 2 per element read or written.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 # device kernels by layer, matched on the kernel's name; the rest of the
@@ -60,7 +84,9 @@ LAYER_OF_KERNEL = (("build_kernel", "k1 build"), ("tile_first", "k2 run ends"),
                    ("run_ends_kernel", "k2 run ends"),
                    ("prep_scatter", "k3 prep"), ("expand_kernel", "k4 expand"),
                    ("compact_scatter", "k5 compact"),
-                   ("tile_sums", "k3/k5 scan phases"),
+                   ("merge_rank", "k6 merge"), ("merge_scatter", "k6 merge"),
+                   ("expand_v2", "k7 expand v2"),
+                   ("tile_sums", "k3/k5/k6 scan phases"),
                    ("RadixSort", "torch.sort"), ("Memcpy", "copies"),
                    ("Memset", "copies"))
 
@@ -91,8 +117,9 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms_by_layer(run, reps: int = 5) -> dict:
-    """Device time per call of run() by layer (torch.profiler), in ms."""
+def device_ms_by_layer(run, reps: int = 5):
+    """Device time per call of run() by layer (torch.profiler), in ms, and
+    the device operations (kernels, copies, fills) per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -101,7 +128,7 @@ def device_ms_by_layer(run, reps: int = 5) -> dict:
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    by_layer = {}
+    by_layer, ops = {}, 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -109,7 +136,20 @@ def device_ms_by_layer(run, reps: int = 5) -> dict:
                     "torch glue")
         by_layer[name] = (by_layer.get(name, 0.0)
                           + evt.self_device_time_total / reps / 1e3)
-    return by_layer
+        ops += evt.count
+    return by_layer, ops / reps
+
+
+def bound(nbytes: float):
+    """(bound_ms, bound_by) for a function that moves nbytes bytes."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * (nbytes / 8) / INT_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def max_abs_err(got, want) -> float:
@@ -168,25 +208,28 @@ def compare_build(inputs, out_cap):
 
 
 def compare_all(state, inputs, emit_cap):
-    """Every kernel against its plain version on one step's inputs.
-    Returns ({name: max_abs_err}, {name: (args, plain function)})."""
+    """Kernels 1-5 and 7 against their plain versions on one step's inputs.
+    Returns ({name: max_abs_err}, {name: (args, plain function, bytes the
+    function moves, library call or None)})."""
     errs, timed = {}, {}
-    errs["emit_build"] = compare_build(inputs, state.keys.shape[0])
-    timed["emit_build"] = (
-        (SPEC, *inputs, 0, state.keys.shape[0]),
-        emit_build_plain)
+    cap = state.keys.shape[0]
+    errs["emit_build"] = compare_build(inputs, cap)
+    timed["emit_build"] = ((SPEC, *inputs, 0, cap), emit_build_plain,
+                           nbytes(*inputs) + 20 * cap, None)
 
     dep, lca, bmeta, ameta, rule = scan_inputs(state)
     e = run_ends(lca, dep, SPEC.axis_bits + 1)
     errs["run_ends"] = max_abs_err(
         [e], [run_ends_plain(lca, dep, SPEC.axis_bits + 1)])
-    timed["run_ends"] = ((lca, dep, SPEC.axis_bits + 1), run_ends_plain)
+    timed["run_ends"] = ((lca, dep, SPEC.axis_bits + 1), run_ends_plain,
+                         nbytes(lca, dep, e), None)
 
     prepped = prep_runs(e, state.ids, bmeta, state.count)
     errs["prep_runs"] = max_abs_err(
         prepped, prep_runs_plain(e, state.ids, bmeta, state.count))
     timed["prep_runs"] = ((e, state.ids, bmeta, state.count),
-                          prep_runs_plain)
+                          prep_runs_plain,
+                          nbytes(e, state.ids, bmeta, *prepped[:4]), None)
 
     sv, ab, bid, bm, m, total, _ = prepped
     xargs = (state.ids, ameta, sv, ab, bid, bm, m, total, emit_cap, rule,
@@ -194,14 +237,36 @@ def compare_all(state, inputs, emit_cap):
     a, b = expand_pairs_prepped(*xargs)
     errs["expand_pairs_prepped"] = max_abs_err(
         (a, b), expand_pairs_prepped_plain(*xargs))
-    timed["expand_pairs_prepped"] = (xargs, expand_pairs_prepped_plain)
+    # the live tree's ids and a-side bytes, the m live entries, the slots
+    timed["expand_pairs_prepped"] = (
+        xargs, expand_pairs_prepped_plain,
+        12 * int(state.count) + 28 * int(m) + nbytes(a, b), None)
 
     valid = a != b
     got, cnt = stream_compact(valid, (a, b))
     want, want_cnt = stream_compact_plain(valid, (a, b))
     errs["stream_compact"] = max_abs_err(got + (cnt,), want + (want_cnt,))
-    timed["stream_compact"] = ((valid, (a, b)), stream_compact_plain)
+    timed["stream_compact"] = ((valid, (a, b)), stream_compact_plain,
+                               nbytes(valid, a, b) + nbytes(*got),
+                               lambda: (a[valid], b[valid]))
+
+    # kernel 7 on the same tree: the v2 branch's starts and run
+    starts, run, v2_total = layer.runs_v2(
+        search.descendant_run_ends(SPEC, state.keys, dep), state.count)
+    vargs = (state.ids, starts, run, v2_total, emit_cap)
+    got = expand_pairs(*vargs)
+    errs["expand_pairs"] = max_abs_err(got, expand_pairs_plain(*vargs))
+    timed["expand_pairs"] = (vargs, expand_pairs_plain,
+                             nbytes(state.ids, starts) + nbytes(*got), None)
     return errs, timed
+
+
+def compare_merge(args):
+    """Kernel 6 against its plain version: ((key, meta), count) exact."""
+    (gk, gm), gc, govf = merge_cancel_compact(*args)
+    (wk, wm), wc, wovf = merge_cancel_compact_plain(*args)
+    check(not bool(govf), "merge_cancel_compact: window overflow set")
+    return max_abs_err((gk, gm, gc), (wk, wm, wc))
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +311,7 @@ def adversarial(dev):
     # emit_build / run_ends / prep / expand on small trees: one object, a
     # depth-0 object spanning the system, shallow boxes, objects outside
     # the system box, an undersized tree, ids either side of 2^24 - 1
-    base = _jaxfree.bench_scene(3, 3000, seed=1)
+    base = bench_caps.bench_scene(3, 3000, seed=1)
     scenes = {
         "one": tuple(x[:1] if i >= 2 else x for i, x in enumerate(base)),
         "depth0": with_box(base, 0.0, 1.0, 1, 2),
@@ -265,7 +330,85 @@ def adversarial(dev):
         state = layer.build(SPEC, *scene, out_capacity=8 * n, device=dev)
         for emit_cap in (64 * n + 1, 1000):  # the second is below total
             compare_all(state, inputs, emit_cap)
-            n_cases += 4
+            n_cases += 5
+    return n_cases + merge_adversarial(dev) + expand_adversarial(dev)
+
+
+def sorted_cols(key, meta, n, dev):
+    """(key, meta) int64 columns sorted by (key, meta), PAD_KEY to n."""
+    o = np.lexsort((meta, key))
+    pad = np.full(n - len(key), PAD_KEY, np.int64)
+    return (torch.as_tensor(np.concatenate([key[o], pad]), device=dev),
+            torch.as_tensor(np.concatenate([meta[o], pad]), device=dev))
+
+
+def merge_adversarial(dev):
+    """Kernel 6 on edge cases: empty churn, all tombstones, all inserts,
+    churn outside the tree's key range, an empty tree, inserts equal to
+    live entries, churn_count short of the buffer, whole-tree churn."""
+    rng = np.random.default_rng(5)
+    n_cases = 0
+    for n in (5000, 70_001):
+        tk = np.sort(rng.choice(1 << 40, n, replace=False) + (1 << 20))
+        tm = rng.integers(0, 1 << 30, n) << 1
+        fresh = rng.choice(1 << 40, 3000, replace=False) + (1 << 20)
+        fresh = fresh[~np.isin(fresh, tk)]
+        pick = rng.choice(n, 1000, replace=False)
+        cases = {
+            "empty": (tk, tm, tk[:0], tm[:0], 0),
+            "all_tombstones": (tk, tm, tk, tm | 1, n),
+            "all_inserts": (tk, tm, fresh, np.arange(len(fresh)) << 1,
+                            len(fresh)),
+            "outside": (tk, tm, np.concatenate([np.arange(500),
+                                                (1 << 42) + np.arange(500)]),
+                        np.arange(1000) << 1, 1000),
+            "empty_tree": (tk[:0], tm[:0], fresh, tm[:len(fresh)],
+                           len(fresh)),
+            "equal_insert": (tk, tm, np.concatenate([tk[pick], tk[pick]]),
+                             np.concatenate([tm[pick] | 1, tm[pick]]), 2000),
+            "short_count": (tk, tm, tk[pick], tm[pick] | 1, 700),
+            "whole_tree": (tk, tm, np.concatenate([tk, tk]),
+                           np.concatenate([tm | 1, tm + 2]), 2 * n),
+        }
+        for name, (ak, am, ck, cm, cc) in cases.items():
+            cap, nc = n + 4000, 2 * n + 64
+            args = (*sorted_cols(ak, am, cap, dev),
+                    *sorted_cols(ck, cm, nc, dev),
+                    torch.tensor(cc, device=dev), cap)
+            compare_merge(args)
+            n_cases += 1
+            if name == "whole_tree":
+                (key, _), cnt, _ = merge_cancel_compact(*args)
+                check(int(cnt) == n and torch.equal(
+                    key[:n].cpu(), torch.as_tensor(tk)),
+                      "merge whole-tree churn: tree not rebuilt")
+    return n_cases
+
+
+def expand_adversarial(dev):
+    """Kernel 7 on edge cases: a run longer than any block, all runs
+    empty, total mid-buffer, total above the pair capacity, an empty
+    tree."""
+    rng = np.random.default_rng(6)
+    n_cases = 0
+    mixed = np.zeros(50_000, np.int64)
+    chosen = rng.choice(50_000 - 64, 2000, replace=False)
+    mixed[chosen] = rng.integers(1, 48, 2000)
+    mixed = np.minimum(mixed, 50_000 - 1 - np.arange(50_000))
+    long_run = np.zeros(300_000, np.int64)
+    long_run[3] = 299_990
+    mid = np.zeros(4096, np.int64)
+    mid[10] = 700
+    for run, P in ((long_run, 300_123), (np.zeros(5000, np.int64), 4096),
+                   (mid, 4096), (mixed, int(mixed.sum()) // 2),
+                   (np.zeros(0, np.int64), 1000)):
+        ids = rng.integers(0, 1 << 32, len(run))
+        starts = np.cumsum(run) - run
+        args = tuple(torch.as_tensor(x, device=dev)
+                     for x in (ids, starts, run)) + (
+            torch.tensor(int(run.sum()), device=dev), P)
+        max_abs_err(expand_pairs(*args), expand_pairs_plain(*args))
+        n_cases += 1
     return n_cases
 
 
@@ -298,10 +441,11 @@ def to_device(scene, dev):
                  for x in (smin, smax, bmin, bmax, ids.astype(np.int64)))
 
 
-def step(scene_t, tree_cap, pair_cap, emit_cap, canonical, spec=SPEC):
+def step(scene_t, tree_cap, pair_cap, emit_cap, canonical, spec=SPEC,
+         expand="v3"):
     state = layer.build(spec, *scene_t, out_capacity=tree_cap)
     return layer.scan(spec, state, pair_cap, emit_capacity=emit_cap,
-                      canonical=canonical)
+                      canonical=canonical, expand=expand)
 
 
 def check_against_cpu(spec, scene, dev, caps):
@@ -349,6 +493,168 @@ def check_slice(native, scene, dev, tree_cap, pair_cap, emit_cap, label):
     return len(want_ids), want.shape[0]
 
 
+def reset_launches() -> None:
+    for wrapper, *_ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: w.launches for name, (w, *_) in KERNELS.items()}
+
+
+def host_ms(fn, reps: int) -> list:
+    """Host-clock times of fn() in ms, each ended by a synchronize."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def motion(scene, frac, dev):
+    """The bench's moving scene (bench.py::bench_update_sweep): A is the
+    scene, B moves ``frac`` of the objects by uniform(-5, 5) per axis and
+    every object by 1e-4 (seed 3).  Bounds on the card."""
+    _, _, bmin, bmax, _ = scene
+    rng = np.random.default_rng(3)
+    moving = rng.random(len(bmin)) < frac
+    jump = (rng.uniform(-5.0, 5.0, size=bmin.shape).astype(np.float32)
+            * moving[:, None])
+    drift = np.float32(1e-4)
+    return ((torch.as_tensor(bmin, device=dev),
+             torch.as_tensor(bmax, device=dev)),
+            (torch.as_tensor(bmin + jump + drift, device=dev),
+             torch.as_tensor(bmax + jump + drift, device=dev)))
+
+
+def states_equal(got, want) -> bool:
+    """Keys, ids, aux (whole capacity), count, invalid_count, overflow."""
+    return (all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+            and int(got.count) == int(want.count)
+            and int(got.invalid_count) == int(want.invalid_count)
+            and bool(got.overflow) == bool(want.overflow))
+
+
+def tree_equals_oracle(state, scene_np):
+    """(whether the state's live tree equals the oracle's, the oracle's
+    sorted (keys, ids))."""
+    smin, smax, bmin, bmax, ids = scene_np
+    keys, oids, _ = native.extend(smin, smax, bmin, bmax, ids)
+    keys, oids = native.sort_tree(keys, oids)
+    got_keys, got_ids, _ = layer.tree_to_numpy(SPEC, state)
+    return (np.array_equal(got_keys, keys) and np.array_equal(got_ids, oids),
+            (keys, oids))
+
+
+def update_sweep(scene_big, dev, tree_cap, pair_cap, emit_cap):
+    """The update path at 1M and four churn fractions.  Returns
+    ({frac: numbers}, launches of the 1% frame, merge kernel args of the
+    1% frame)."""
+    smin, smax, _, _, ids = scene_big
+    smin_t, smax_t, _, _, ids_t = to_device(scene_big, dev)
+    results, frame_launches, merge_args = {}, None, None
+    for frac in (0.005, 0.01, 0.03, 0.10):
+        churn_cap, obj_cap = bench_caps.update_caps(len(ids), frac)
+        A, B = motion(scene_big, frac, dev)
+        tracked = upd.build_tracked(SPEC, smin_t, smax_t, *A, ids_t,
+                                    out_capacity=tree_cap)
+        label = f"update 1M churn {frac:.1%}"
+
+        def frame_update(tr, bounds, c=churn_cap, o=obj_cap):
+            return upd.update(SPEC, tr, smin_t, smax_t, *bounds, c,
+                              obj_cap=o)
+
+        if frac == 0.01:    # the frame path, counted: update + scan
+            churn = upd._frame_churn(SPEC, tracked, smin_t, smax_t, *B,
+                                     churn_cap, 2, obj_cap, False)
+            merge_args = (*upd._tree_merge_cols(SPEC, tracked.state, False),
+                          churn.key, churn.meta, churn.count, tree_cap)
+            reset_launches()
+            t_b = frame_update(tracked, B)
+            _, res_b = layer.scan(SPEC, t_b.state, pair_cap,
+                                  emit_capacity=emit_cap)
+            frame_launches = read_launches()
+            check(frame_launches["merge_cancel_compact"] > 0
+                  and frame_launches["stream_compact"] > 0,
+                  f"{label}: merge or compact kernel not launched: "
+                  f"{frame_launches}")
+        else:
+            t_b = frame_update(tracked, B)
+        fresh = layer.build(SPEC, smin_t, smax_t, *B, ids_t,
+                            out_capacity=tree_cap)
+        check(not bool(t_b.state.overflow), f"{label}: overflow")
+        check(states_equal(t_b.state, fresh),
+              f"{label}: the update differs from a fresh build")
+        scene_b = (smin, smax, B[0].cpu().numpy(), B[1].cpu().numpy(), ids)
+        same, (okeys, oids) = tree_equals_oracle(fresh, scene_b)
+        check(same, f"{label}: the fresh build differs from the oracle")
+        extra = ""
+        if frac == 0.01:
+            want = native.scan_seq(okeys, oids, pair_slack=24)
+            got = layer.scan_result_to_numpy(res_b)
+            check(not bool(res_b.overflow) and np.array_equal(got, want),
+                  f"{label}: {got.shape[0]} canonical pairs of the updated "
+                  f"tree differ from the oracle's {want.shape[0]}")
+            extra = (f"; its {want.shape[0]} canonical pairs equal the "
+                     "oracle's")
+            small = upd.update(SPEC, tracked, smin_t, smax_t, *B, 64,
+                               obj_cap=obj_cap)
+            check(bool(small.state.overflow),
+                  f"{label}: churn_cap 64 did not set overflow")
+            wide_ids = ids_t + (1 << 28)
+            wide = upd.build_tracked(SPEC, smin_t, smax_t, *A, wide_ids,
+                                     out_capacity=tree_cap)
+            check(bool(frame_update(wide, B).state.overflow),
+                  f"{label}: ids >= 2^28 - 1 without wide_ids did not set "
+                  "overflow")
+            extra += ("; churn_cap 64 and ids >= 2^28-1 without "
+                      f"wide_ids set overflow; launches of the frame "
+                      f"(update + canonical scan) {frame_launches}")
+        print(f"{label}: churn_cap {churn_cap}, obj_cap {obj_cap}; the "
+              f"first update equals a fresh build (keys, ids, aux, count "
+              f"{int(fresh.count)}, invalid_count {int(fresh.invalid_count)},"
+              f" overflow), and the fresh build equals the oracle{extra}")
+
+        # steady state: alternate A and B, so every frame has real churn
+        run = {"tracked": t_b, "frames": 0}
+
+        def next_frame(scan_too=False):
+            run["frames"] += 1
+            run["tracked"] = frame_update(run["tracked"],
+                                          A if run["frames"] % 2 else B)
+            if scan_too:
+                layer.scan(SPEC, run["tracked"].state, pair_cap,
+                           emit_capacity=emit_cap)
+
+        for _ in range(3):
+            next_frame()
+        upd_ms = host_ms(next_frame, 30)
+        bld_ms = host_ms(lambda: layer.build(SPEC, smin_t, smax_t, *B, ids_t,
+                                             out_capacity=tree_cap), 20)
+        frame_ms = host_ms(lambda: next_frame(True), 20)
+        check(not bool(run["tracked"].state.overflow),
+              f"{label}: overflow in the timed frames")
+        up50, up90 = np.percentile(upd_ms, [50, 90])
+        b50 = float(np.percentile(bld_ms, 50))
+        f50 = float(np.percentile(frame_ms, 50))
+        print(f"{label}: update p50 {up50:.3f} ms, p90 {up90:.3f} ms (30 "
+              f"alternating frames); fresh build p50 {b50:.3f} ms (20); "
+              f"frame (update + canonical scan) p50 {f50:.3f} ms (20)")
+        layers, ops = device_ms_by_layer(next_frame, reps=4)
+        busy = sum(layers.values())
+        print(f"profile {label}: device busy {busy:.3f} ms/update of the "
+              f"{up50:.3f} ms p50 (idle share {1 - busy / up50:.3f}), "
+              f"{ops:.0f} device operations per update; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          sorted(layers.items(), key=lambda kv: -kv[1])))
+        results[frac] = {"update_p50": up50, "update_p90": up90,
+                         "build_p50": b50, "frame_p50": f50}
+    return results, frame_launches, merge_args
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -365,39 +671,35 @@ def main() -> int:
     # 2. build the kernels from csrc/
     t0 = time.perf_counter()
     _cuda.load()
-    print(f"build: 5 kernels from broadphase_tpu_torch/csrc in "
+    print(f"build: {len(KERNELS)} kernels from broadphase_tpu_torch/csrc in "
           f"{time.perf_counter() - t0:.1f} s -> {_cuda.library_path().name}")
 
-    native = _jaxfree.native()
-    caps = _jaxfree.bench_caps()
     n_big = 1_000_000
-    scene_big = _jaxfree.bench_scene(3, n_big)
-    tree_cap = caps.tree_capacity(n_big)
-    pair_cap = caps.pair_capacity(n_big)
-    emit_cap = caps.emit_capacity(n_big)
+    scene_big = bench_caps.bench_scene(3, n_big)
+    tree_cap = bench_caps.tree_capacity(n_big)
+    pair_cap = bench_caps.pair_capacity(n_big)
+    emit_cap = bench_caps.emit_capacity(n_big)
 
     # 3. kernels against their plain versions: the 1M step's own
-    # intermediates, timed, and the adversarial cases
+    # intermediates (and a 1% update frame's merge inputs, from phase 7),
+    # timed, and the adversarial cases
     inputs = build_inputs(scene_big, dev)
     state_big = layer.build(SPEC, *scene_big, out_capacity=tree_cap,
                             device=dev)
     errs, timed = compare_all(state_big, inputs, emit_cap)
-    times = {}
-    for name, (args, plain) in timed.items():
-        wrapper = KERNELS[name][0]
-        times[name] = (cuda_ms(lambda: wrapper(*args)),
-                       cuda_ms(lambda: plain(*args)))
-        print(f"kernel {name}: exact match at the 1M step's shapes; "
-              f"kernel {times[name][0]:.3f} ms, plain "
-              f"{times[name][1]:.3f} ms (median of 10)")
     n_cases = adversarial(dev)
     print(f"adversarial: {n_cases} kernel cases exact (empty, one element, "
           f"ragged sizes, depth-0 and shallow boxes, outside boxes, "
-          f"undersized tree, total > emit_cap, ids either side of 2^24-1)")
+          f"undersized tree, total > emit_cap, ids either side of 2^24-1; "
+          f"merge: empty churn, all tombstones, all inserts, churn outside "
+          f"the tree's keys, empty tree, inserts equal to live entries, "
+          f"short churn_count, whole-tree churn; v2 expansion: a run "
+          f"longer than any block, all runs empty, total mid-buffer, "
+          f"total > pair capacity, empty tree)")
 
     # 4. slice at 30k against the C++ oracle, plus a depth-0 object
     n_small = 30_000
-    scene_small = _jaxfree.bench_scene(3, n_small)
+    scene_small = bench_caps.bench_scene(3, n_small)
     for label, sc in (("30k+depth0", with_box(scene_small, 0.0, 1.0, 1, 5)),
                       ("30k", scene_small)):
         cells, pairs = check_slice(
@@ -410,7 +712,7 @@ def main() -> int:
           "overflow")
     print(f"slice 30k: pair_capacity {pairs // 2} (half its pairs) sets "
           "overflow")
-    scene_2d = with_box(_jaxfree.bench_scene(2, n_small), 0.0, 1.0, 1, 6)
+    scene_2d = with_box(bench_caps.bench_scene(2, n_small), 0.0, 1.0, 1, 6)
     for spec in (Index64_2D, Index32_2D):
         pairs = check_against_cpu(spec, scene_2d, dev, (
             4 * n_small, 16 * n_small, 32 * n_small))
@@ -418,14 +720,13 @@ def main() -> int:
               "pairs, and the emission-order pairs, equal the CPU path's")
 
     # 5. slice at 1M: the main path, counted launches, oracle, step times
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
     scene_t = to_device(scene_big, dev)
+    reset_launches()
     state, res = step(scene_t, tree_cap, pair_cap, emit_cap, True)
-    torch.cuda.synchronize()
-    launches = {name: w.launches for name, (w, _, _) in KERNELS.items()}
-    check(all(v > 0 for v in launches.values()),
-          f"1M: a kernel of the path was not launched: {launches}")
+    step_launches = read_launches()
+    step_kernels = [k for k, v in KERNELS.items() if v[3] == "step"]
+    check(all(step_launches[k] > 0 for k in step_kernels),
+          f"1M: a kernel of the path was not launched: {step_launches}")
     check(not bool(state.overflow) and not bool(res.overflow), "1M: overflow")
     want_keys, want_ids, want = oracle(native, scene_big)
     keys, ids, _ = layer.tree_to_numpy(SPEC, state)
@@ -436,20 +737,17 @@ def main() -> int:
           f"1M: {got.shape[0]} canonical pairs differ from the oracle's "
           f"{want.shape[0]}")
     print(f"slice 1M: tree ({len(want_ids)} cells) and {want.shape[0]} "
-          f"canonical pairs equal the oracle; launches {launches}; scene "
-          f"sha1 {scene_digest(scene_big)} (numpy {np.__version__})")
+          f"canonical pairs equal the oracle; launches {step_launches}; "
+          f"scene sha1 {scene_digest(scene_big)} (numpy {np.__version__})")
 
     for canonical in (True, False):
         for _ in range(3):
             step(scene_t, tree_cap, pair_cap, emit_cap, canonical)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        walls = []
-        for _ in range(100):
-            t0 = time.perf_counter()
-            _, r = step(scene_t, tree_cap, pair_cap, emit_cap, canonical)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
+        walls = host_ms(lambda: step(scene_t, tree_cap, pair_cap, emit_cap,
+                                     canonical), 100)
+        _, r = step(scene_t, tree_cap, pair_cap, emit_cap, canonical)
         check(not bool(r.overflow) and int(r.count) == want.shape[0],
               f"1M canonical={canonical}: count {int(r.count)} != "
               f"{want.shape[0]}")
@@ -458,20 +756,68 @@ def main() -> int:
         print(f"step 1M canonical={canonical}: p50 {p50:.3f} ms, p90 "
               f"{p90:.3f} ms (100 steps, host clock to synchronize), peak "
               f"memory {peak:.2f} GiB")
-        layers = device_ms_by_layer(
+        layers, ops = device_ms_by_layer(
             lambda: step(scene_t, tree_cap, pair_cap, emit_cap, canonical))
         busy = sum(layers.values())
         print(f"profile 1M canonical={canonical}: device busy {busy:.3f} "
               f"ms/step of the {p50:.3f} ms p50 (idle share "
-              f"{1 - busy / p50:.3f}); " + ", ".join(
+              f"{1 - busy / p50:.3f}), {ops:.0f} device operations per "
+              "step; " + ", ".join(
                   f"{k} {v:.3f}" for k, v in
                   sorted(layers.items(), key=lambda kv: -kv[1])))
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (_, src, rep) in KERNELS.items()]}))
+    # 6. the v2 scan at 1M: counted launches, oracle.  It has no emit-once
+    # rule, so its pair buffer holds raw emissions before the dedup, and is
+    # sized as the emission buffer (bench_caps: the wide-id regime's rule)
+    reset_launches()
+    _, res2 = layer.scan(SPEC, state, emit_cap, emit_capacity=emit_cap,
+                         expand="v2")
+    v2_launches = read_launches()
+    check(v2_launches["expand_pairs"] > 0,
+          f"1M v2 scan: kernel 7 was not launched: {v2_launches}")
+    got2 = layer.scan_result_to_numpy(res2)
+    check(np.array_equal(got2, want),
+          f"1M v2 scan: {got2.shape[0]} canonical pairs differ from the "
+          f"oracle's {want.shape[0]}")
+    v2_ms = host_ms(lambda: step(scene_t, tree_cap, emit_cap, emit_cap,
+                                 True, expand="v2"), 20)
+    print(f"scan_v2 1M: {got2.shape[0]} canonical pairs equal the oracle; "
+          f"overflow {bool(res2.overflow)}; launches {v2_launches}; step "
+          f"(build + v2 scan) p50 {np.percentile(v2_ms, 50):.3f} ms (20)")
+
+    # 7. the update path at 1M, four churn fractions
+    results, frame_launches, merge_args = update_sweep(
+        scene_big, dev, tree_cap, pair_cap, emit_cap)
+    errs["merge_cancel_compact"] = compare_merge(merge_args)
+    cc = int(merge_args[4])
+    timed["merge_cancel_compact"] = (
+        merge_args, merge_cancel_compact_plain,
+        16 * (tree_cap + cc) + 16 * tree_cap, None)
+    print("update summary: " + json.dumps(
+        {f"{k:.3f}": {m: round(v, 3) for m, v in r.items()}
+         for k, r in results.items()}))
+
+    # 8. every kernel timed at the main path's shapes, and the kernels line
+    launches = {"step": step_launches, "frame": frame_launches,
+                "scan_v2": v2_launches}
+    rows = []
+    for name, (wrapper, src, rep, path) in KERNELS.items():
+        args, plain, moved, library = timed[name]
+        ms = cuda_ms(lambda: wrapper(*args))
+        plain_ms = cuda_ms(lambda: plain(*args))
+        library_ms = cuda_ms(library) if library is not None else None
+        bound_ms, bound_by = bound(moved)
+        print(f"kernel {name}: exact at the 1M shapes; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({moved / 1e6:.1f} MB), library "
+              + (f"{library_ms:.3f} ms" if library_ms is not None else
+                 "none") + f"; {launches[path][name]} launches per {path}")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[path][name],
+                     "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,27 @@
 """The port stands without JAX: ``broadphase_tpu_torch`` and ``chip_smoke``
-import, and a small step runs, in a process where importing ``jax``,
-``jaxlib`` or ``broadphase_tpu`` raises.  ``chip_smoke.py`` fails without a
-CUDA card, and when it stands alone without the repository.
+import, and a small step and update run, in a process where importing
+``jax``, ``jaxlib`` or ``broadphase_tpu`` raises; no file of the port
+loads anything of ``broadphase_tpu/`` by path; its copies of the bench
+capacities, the bench scene and the C++ oracle bindings give what the
+originals give.  ``chip_smoke.py`` fails without a CUDA card, and when it
+stands alone without the repository.
 """
 
+import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
+import pytest
+
+import bench
+from broadphase_tpu import bench_caps as jcaps
+from broadphase_tpu.utils import native
+from broadphase_tpu_torch import bench_caps, oracle
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -27,20 +40,24 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 import broadphase_tpu_torch as bt
 import chip_smoke
-from broadphase_tpu_torch import _jaxfree, convert, layer
-from broadphase_tpu_torch.ops import _cuda, build, compact, expand2, prep
-from broadphase_tpu_torch.ops import runends, search
+from broadphase_tpu_torch import bench_caps, convert, layer, oracle, update
+from broadphase_tpu_torch.ops import _cuda, build, compact, expand, expand2
+from broadphase_tpu_torch.ops import merge, prep, runends, search
 
-caps = _jaxfree.bench_caps()
-assert caps.tree_capacity(1_000_000) == 3_700_736
-native = _jaxfree.native()
-scene = _jaxfree.bench_scene(3, 500)
-state = layer.build(bt.Index64_3D, *scene, out_capacity=8 * 500)
+assert bench_caps.tree_capacity(1_000_000) == 3_700_736
+scene = bench_caps.bench_scene(3, 500)
+state = layer.build(bt.Index64_3D, *scene, out_capacity=8 * 500,
+                    device="cpu")
 _, res = layer.scan(bt.Index64_3D, state, 64 * 500)
-keys, ids, _ = native.extend(*scene)
-keys, ids = native.sort_tree(keys, ids)
+keys, ids, _ = oracle.extend(*scene)
+keys, ids = oracle.sort_tree(keys, ids)
 assert np.array_equal(layer.scan_result_to_numpy(res),
-                      native.scan_seq(keys, ids))
+                      oracle.scan_seq(keys, ids))
+tracked = update.build_tracked(bt.Index64_3D, *scene, out_capacity=8 * 500,
+                               device="cpu")
+moved = update.update(bt.Index64_3D, tracked, scene[0], scene[1],
+                      scene[2] + 3.0, scene[3] + 3.0, 8 * 500)
+assert not bool(moved.state.overflow)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "broadphase_tpu"))
 assert not loaded, loaded
@@ -78,3 +95,71 @@ def test_chip_smoke_fails_alone(tmp_path):
                          env=_env(), cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_copies_match_the_originals():
+    for n in (1, 1000, 30_000, 1_000_000):
+        assert bench_caps.tree_capacity(n) == jcaps.tree_capacity(n)
+        assert bench_caps.pair_capacity(n) == jcaps.pair_capacity(n)
+        assert bench_caps.emit_capacity(n) == jcaps.emit_capacity(n)
+        for frac in (0.005, 0.01, 0.03, 0.1):
+            assert bench_caps.update_caps(n, frac) == \
+                jcaps.update_caps(n, frac)
+    for got, want in zip(bench_caps.bench_scene(3, 3000, seed=4),
+                         bench._scene(3, 3000, seed=4)):
+        np.testing.assert_array_equal(got, want)
+    scene = bench._scene(3, 3000, seed=4)
+    got = oracle.extend(*scene)
+    want = native.extend(*scene)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    got = oracle.sort_tree(*got[:2])
+    want = native.sort_tree(*want[:2])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(oracle.scan_seq(*got),
+                                  native.scan_seq(*want))
+
+
+# a file:line citation of the JAX package (which no program can open)
+_CITATION = re.compile(r"^broadphase_tpu/[\w/]+\.py:\d+$")
+
+
+def _python_files():
+    return sorted((REPO / "broadphase_tpu_torch").rglob("*.py")) + \
+        [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _python_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_path_into_the_jax_package(path):
+    """No module of the port, and not chip_smoke.py, imports JAX or the JAX
+    package, names a path inside ``broadphase_tpu/`` other than in a
+    file:line citation, or loads a module from a file."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            names = []
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib",
+                                              "broadphase_tpu"), name
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            v = node.value
+            assert v != "broadphase_tpu", f"{path}: path component {v!r}"
+            assert not v.startswith("broadphase_tpu/") or \
+                _CITATION.match(v), f"{path}: path {v!r}"
+        if isinstance(node, (ast.Attribute, ast.Name)):
+            ident = node.attr if isinstance(node, ast.Attribute) else node.id
+            assert ident not in ("spec_from_file_location", "exec_module",
+                                 "import_module"), f"{path}: {ident}"
+
+
+def test_kernel_sources_include_nothing_of_the_jax_package():
+    for src in sorted((REPO / "broadphase_tpu_torch" / "csrc").glob("*")):
+        for line in src.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert "broadphase_tpu/" not in line, (src.name, line)

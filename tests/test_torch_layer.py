@@ -16,10 +16,11 @@ import bench
 from broadphase_tpu import index as bidx
 from broadphase_tpu import layer as jl
 from broadphase_tpu.utils import native
-from broadphase_tpu_torch import LayerBuilder, _jaxfree, convert
+from broadphase_tpu_torch import LayerBuilder, bench_caps, convert
 from broadphase_tpu_torch import index as tidx
 from broadphase_tpu_torch import layer as tl
-from broadphase_tpu_torch.ops import build, compact, expand2, prep, runends
+from broadphase_tpu_torch.ops import (build, compact, expand, expand2, merge,
+                                      prep, runends)
 
 from test_torch_index import jax_keys_np
 
@@ -45,7 +46,7 @@ def _jax_step(spec, scene, tree_cap, pair_cap, emit_cap, canonical):
 
 
 def _torch_step(tspec, scene, tree_cap, pair_cap, emit_cap, canonical):
-    st = tl.build(tspec, *scene, out_capacity=tree_cap)
+    st = tl.build(tspec, *scene, out_capacity=tree_cap, device="cpu")
     return tl.scan(tspec, st, pair_cap, emit_capacity=emit_cap,
                    canonical=canonical)
 
@@ -77,7 +78,7 @@ def _assert_scan_equal(jres, tres):
 
 
 def test_bench_scene_matches_bench_generator():
-    for got, want in zip(_jaxfree.bench_scene(3, 2000),
+    for got, want in zip(bench_caps.bench_scene(3, 2000),
                          bench._scene(3, 2000)):
         np.testing.assert_array_equal(got, want)
 
@@ -191,15 +192,15 @@ def test_layer_builder_and_empty_layer():
     tspec = tidx.Index64_3D
     scene = _scene("bench")
     lb = LayerBuilder(index_capacity=CAPS[0], collision_capacity=CAPS[1])
-    st = lb.build(tspec, *scene)
+    st = lb.build(tspec, *scene, device="cpu")
     _, res = lb.scan(tspec, st)
     _, want = _torch_step(tspec, scene, CAPS[0], CAPS[1], None, True)
     np.testing.assert_array_equal(tl.scan_result_to_numpy(res),
                                   tl.scan_result_to_numpy(want))
-    empty = lb.empty(tspec)
+    empty = lb.empty(tspec, device="cpu")
     _, res = lb.scan(tspec, empty)
     assert int(res.count) == 0 and not bool(res.overflow)
-    _, res = tl.scan(tspec, tl.make_layer(tspec, 0), 64)
+    _, res = tl.scan(tspec, tl.make_layer(tspec, 0, device="cpu"), 64)
     assert int(res.count) == 0 and res.pairs_a.shape == (64,)
 
 
@@ -223,11 +224,17 @@ def _meta_args(name):
                                   z((), i64), 16, z((), torch.bool), 3)),
         "stream_compact": (compact.stream_compact,
                            (z(4, torch.bool), (z(4, i64),))),
+        "merge_cancel_compact": (merge.merge_cancel_compact,
+                                 (z(4, i64), z(4, i64), z(2, i64), z(2, i64),
+                                  z((), i64), 4)),
+        "expand_pairs": (expand.expand_pairs,
+                         (z(4, i64), z(4, i64), z(4, i64), z((), i64), 16)),
     }[name]
 
 
 @pytest.mark.parametrize("name", ["emit_build", "run_ends", "prep_runs",
-                                  "expand_pairs_prepped", "stream_compact"])
+                                  "expand_pairs_prepped", "stream_compact",
+                                  "merge_cancel_compact", "expand_pairs"])
 def test_kernel_wrappers_dispatch_on_device(name):
     """A tensor not on the CPU goes to the kernel, which refuses anything
     but a CUDA tensor: no silent plain path, and no launch counted."""
