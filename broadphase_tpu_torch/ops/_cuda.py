@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # C entry points: "p" = pointer (c_void_p), "i" = int64 (c_int64).  Every
 # pointer argument is a device pointer except the trailing stream handle.
@@ -35,7 +35,7 @@ _SIGNATURES = {
     "bpt_build": "ppppp" + "ppp" + "iiiiiii" + "p",
     "bpt_runends": "ppppp" + "ii" + "p",
     "bpt_prep": "pppp" + "pppp" + "pp" + "i" + "p",
-    "bpt_expand": "pppppppppp" + "ii" + "p",
+    "bpt_expand": "pppppp" + "ppp" + "pp" + "iii" + "p",
     "bpt_merge": "ppppp" + "ppp" + "pppp" + "iii" + "p",
     "bpt_expand_v2": "ppppp" + "ii" + "p",
 }
@@ -67,6 +67,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbpt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_log(target: Path) -> Path:
+    """The ``-Xptxas=-v`` report (registers, shared memory and spills of
+    every kernel) that the build of library ``target`` left beside it."""
+    return target.with_suffix(".ptxas.txt")
+
+
 def _build(target: Path) -> None:
     nvcc = _nvcc()
     cu, _ = _sources()
@@ -86,6 +92,8 @@ def _build(target: Path) -> None:
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n"
                                    f"{res.stdout}\n{res.stderr}")
+        ptxas_log(target).write_text(
+            "".join(r.stdout + r.stderr for r in results))
         tmp_so = Path(tmp) / target.name
         res = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
@@ -112,8 +120,9 @@ def load() -> ctypes.CDLL:
                        for c in sig]
     lib.bpt_error_string.restype = ctypes.c_char_p
     lib.bpt_error_string.argtypes = [ctypes.c_int]
-    lib.bpt_scan_tile.restype = ctypes.c_int64
-    lib.bpt_scan_tile.argtypes = []
+    for name in ("bpt_scan_tile", "bpt_compact_tile"):
+        getattr(lib, name).restype = ctypes.c_int64
+        getattr(lib, name).argtypes = []
     _lib = lib
     return lib
 
@@ -135,6 +144,13 @@ def scan_tiles(n: int) -> int:
     elements into; callers size its scratch with it."""
     tile = load().bpt_scan_tile()
     return max(1, -(-n // tile))
+
+
+def compact_tile() -> int:
+    """Lanes a block of the single-pass compaction kernel
+    (``compact.cu``) takes; its scratch is one status word a tile plus
+    the ticket."""
+    return load().bpt_compact_tile()
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

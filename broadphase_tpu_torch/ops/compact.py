@@ -2,9 +2,10 @@
 
 Replaces ``broadphase_tpu/ops/pallas_compact.py::stream_compact``; the
 plain version is the counterpart of ``broadphase_tpu/ops/compact.py::
-stable_compact``.  The kernel is bound by device memory: it reads the keep
-flags twice and every column once, and writes every column once.  Its
-device-wide scan (``csrc/scan.cuh``) is shared with the prep kernel.
+stable_compact``.  The kernel makes one pass over the data, by decoupled
+look-back (``csrc/scan1.cuh``), and is bound by device memory: it reads
+the keep flags and every column once, and writes every column once.  Its
+counts are 32-bit, so it takes fewer than 2^31 lanes.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from . import _cuda
 
 PAD_ID = 0xFFFF_FFFF
 MAX_COLS = 4
+MAX_LANES = 2 ** 31 - 1
 
 
 def stream_compact_plain(keep: torch.Tensor, cols: Sequence[torch.Tensor],
@@ -51,11 +53,15 @@ def stream_compact(keep: torch.Tensor, cols: Sequence[torch.Tensor],
             c.dtype != torch.int64 or c.shape != (n,) for c in cols):
         raise ValueError("stream_compact: keep must be bool and every "
                          "column int64 of the same length")
+    if n > MAX_LANES:
+        raise ValueError(f"stream_compact takes at most {MAX_LANES} lanes, "
+                         f"got {n}")
     _cuda.require_cuda("stream_compact", keep, *cols)
     outs = [torch.empty_like(c) for c in cols]
     count = torch.empty((), dtype=torch.int64, device=keep.device)
-    scratch = torch.empty(_cuda.scan_tiles(n), dtype=torch.int64,
-                          device=keep.device)
+    # one status word a tile, then the ticket; the entry point clears them
+    scratch = torch.empty(-(-n // _cuda.compact_tile()) + 1,
+                          dtype=torch.int64, device=keep.device)
     pad = MAX_COLS - len(cols)
     ins = list(cols) + [0] * pad
     outs_p = outs + [0] * pad

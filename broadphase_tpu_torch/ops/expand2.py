@@ -8,8 +8,10 @@ For each pair slot t < total, in run k (the last prepped entry with
 
 With the rule on, the emission is kept only in the pair's canonical cell
 (:func:`emit_once_keep`); dropped emissions and slots >= total are PAD on
-both sides.  The kernel gives one thread per slot and finds k by binary
-search; bound by device memory (16 bytes written per slot).
+both sides.  The kernel partitions the slots into blocks of 1024, finds
+each block's first and last run by one search, and gives every slot its
+run by a forward fill in shared memory; bound by device memory (16 bytes
+written per slot).
 """
 
 from __future__ import annotations
@@ -72,16 +74,21 @@ def expand_pairs_prepped(ids, ameta, sv, ab, bid, bmeta, m, total,
             or bid.dtype != torch.int64 or bmeta.dtype != torch.int32):
         raise ValueError("expand_pairs_prepped: int64 ids/sv/ab/bid and "
                          "int32 ameta/bmeta expected")
+    if ameta.shape != ids.shape or not (
+            sv.shape == ab.shape == bid.shape == bmeta.shape):
+        raise ValueError("expand_pairs_prepped: ameta must match ids, and "
+                         "sv/ab/bid/bmeta one another, in length")
     dev = ids.device
-    stats = torch.stack([torch.as_tensor(m, device=dev),
-                         torch.as_tensor(total, device=dev)]).to(torch.int64)
+    m_t = torch.as_tensor(m, dtype=torch.int64, device=dev).reshape(())
+    total_t = torch.as_tensor(total, dtype=torch.int64,
+                              device=dev).reshape(())
     rule_t = torch.as_tensor(rule, dtype=torch.bool, device=dev).reshape(())
     _cuda.require_cuda("expand_pairs_prepped", ids, ameta, sv, ab, bid,
-                       bmeta, stats, rule_t)
+                       bmeta, m_t, total_t, rule_t)
     a = torch.empty(pair_capacity, dtype=torch.int64, device=dev)
     b = torch.empty_like(a)
-    _cuda.launch("bpt_expand", ids, ameta, sv, ab, bid, bmeta, stats, rule_t,
-                 a, b, int(pair_capacity), int(dim))
+    _cuda.launch("bpt_expand", ids, ameta, sv, ab, bid, bmeta, m_t, total_t,
+                 rule_t, a, b, ids.shape[0], int(pair_capacity), int(dim))
     expand_pairs_prepped.launches += 1
     return a, b
 

@@ -46,25 +46,32 @@ from broadphase_tpu_torch.ops.runends import run_ends, run_ends_plain
 SPEC = Index64_3D
 KERNELS = {
     # name: (wrapper, source, TPU kernel it replaces, path whose launches
-    # the kernels line reports)
+    # the kernels line reports, names of the device work its entry point
+    # launches, as the profiler shows them)
     "emit_build": (emit_build, "broadphase_tpu_torch/csrc/build.cu",
-                   "broadphase_tpu/ops/pallas_build.py:290", "step"),
+                   "broadphase_tpu/ops/pallas_build.py:290", "step",
+                   ("build_kernel",)),
     "run_ends": (run_ends, "broadphase_tpu_torch/csrc/runends.cu",
-                 "broadphase_tpu/ops/pallas_runends.py:103", "step"),
+                 "broadphase_tpu/ops/pallas_runends.py:103", "step",
+                 ("tile_first", "carry_kernel", "run_ends_kernel")),
     "prep_runs": (prep_runs, "broadphase_tpu_torch/csrc/prep.cu",
-                  "broadphase_tpu/ops/pallas_prep.py:173", "step"),
+                  "broadphase_tpu/ops/pallas_prep.py:173", "step",
+                  ("prep_scatter", "tile_sums")),
     "expand_pairs_prepped": (expand_pairs_prepped,
                              "broadphase_tpu_torch/csrc/expand2.cu",
                              "broadphase_tpu/ops/pallas_expand2.py:307",
-                             "step"),
+                             "step", ("expand_partitioned",)),
     "stream_compact": (stream_compact, "broadphase_tpu_torch/csrc/compact.cu",
-                       "broadphase_tpu/ops/pallas_compact.py:200", "step"),
+                       "broadphase_tpu/ops/pallas_compact.py:200", "step",
+                       ("compact_onepass", "Memset")),
     "merge_cancel_compact": (merge_cancel_compact,
                              "broadphase_tpu_torch/csrc/merge.cu",
                              "broadphase_tpu/ops/pallas_merge.py:263",
-                             "frame"),
+                             "frame", ("merge_rank", "merge_scatter",
+                                       "tile_sums")),
     "expand_pairs": (expand_pairs, "broadphase_tpu_torch/csrc/expand.cu",
-                     "broadphase_tpu/ops/pallas_expand.py:203", "scan_v2"),
+                     "broadphase_tpu/ops/pallas_expand.py:203", "scan_v2",
+                     ("expand_v2",)),
 }
 
 # The least time the card could take: the
@@ -82,11 +89,12 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 LAYER_OF_KERNEL = (("build_kernel", "k1 build"), ("tile_first", "k2 run ends"),
                    ("carry_kernel", "k2 run ends"),
                    ("run_ends_kernel", "k2 run ends"),
-                   ("prep_scatter", "k3 prep"), ("expand_kernel", "k4 expand"),
-                   ("compact_scatter", "k5 compact"),
+                   ("prep_scatter", "k3 prep"),
+                   ("expand_partitioned", "k4 expand"),
+                   ("compact_onepass", "k5 compact"),
                    ("merge_rank", "k6 merge"), ("merge_scatter", "k6 merge"),
                    ("expand_v2", "k7 expand v2"),
-                   ("tile_sums", "k3/k5/k6 scan phases"),
+                   ("tile_sums", "k3/k6 scan phases"),
                    ("RadixSort", "torch.sort"), ("Memcpy", "copies"),
                    ("Memset", "copies"))
 
@@ -138,6 +146,44 @@ def device_ms_by_layer(run, reps: int = 5):
                           + evt.self_device_time_total / reps / 1e3)
         ops += evt.count
     return by_layer, ops / reps
+
+
+def kernel_device_ms(fn, names=None, reps: int = 10) -> float:
+    """Device time per call of fn() in ms (torch.profiler, summed over reps
+    calls after one warm-up): the device work whose name holds one of
+    ``names``, or all of it when names is None.  Unlike cuda_ms it leaves
+    out the host's enqueue of the call's allocations and launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.self_device_time_total for evt in prof.key_averages()
+             if evt.device_type == DeviceType.CUDA
+             and (names is None or any(k in evt.key for k in names)))
+    return us / reps / 1e3
+
+
+def ptxas_summary(names) -> list:
+    """Registers, shared memory and spills of each kernel whose mangled
+    name holds one of ``names``, from the build's ``-Xptxas=-v`` report."""
+    log = _cuda.ptxas_log(_cuda.library_path())
+    fn, spill, out = None, "", []
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = next((k for k in names if k in line), None)
+            spill = ""
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "Used" in line:
+            out.append(f"{fn}: {line.split(':', 1)[1].strip()}; {spill}")
+            fn = None
+    return out
 
 
 def bound(nbytes: float):
@@ -331,7 +377,114 @@ def adversarial(dev):
         for emit_cap in (64 * n + 1, 1000):  # the second is below total
             compare_all(state, inputs, emit_cap)
             n_cases += 5
-    return n_cases + merge_adversarial(dev) + expand_adversarial(dev)
+    return (n_cases + compact_adversarial(dev) + expand2_adversarial(dev)
+            + merge_adversarial(dev) + expand_adversarial(dev))
+
+
+def compact_adversarial(dev):
+    """Kernel 5 on what a single-pass tiled design can get wrong: 8k+
+    tiles, tiles alternating all-kept and none-kept, one kept lane in the
+    last tile, lengths one below, at and one above a tile multiple, 1, 3
+    and 4 columns with distinct fills, and two calls in a row on one stream
+    (stale status words)."""
+    tile = _cuda.compact_tile()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fills = (7, -1, 1 << 40, -12345)
+
+    def cols_of(n, k):
+        lane = torch.arange(n, dtype=torch.int64, device=dev)
+        return tuple(lane * (2 * j + 3) - j for j in range(k))
+
+    def rand_keep(n, p=0.5):
+        return torch.rand(n, generator=gen, device=dev) < p
+
+    cases = [(rand_keep(8200 * tile + 5), 1)]                 # 8k+ tiles
+    lane = torch.arange(40 * tile + 7, device=dev)
+    cases.append(((lane // tile) % 2 == 0, 2))          # alternating tiles
+    lane = torch.arange(37 * tile + 100, device=dev)
+    cases.append((lane == lane.shape[0] - 3, 2))   # one kept, in the last tile
+    cases += [(rand_keep(3 * tile + d), 2) for d in (-1, 0, 1)]
+    cases += [(rand_keep(5 * tile + 17, 0.3), k) for k in (1, 3, 4)]
+    for keep, k in cases:
+        cols = cols_of(keep.shape[0], k)
+        got = stream_compact(keep, cols, fills[:k])
+        want = stream_compact_plain(keep, cols, fills[:k])
+        max_abs_err(got[0] + (got[1],), want[0] + (want[1],))
+    # two calls in a row on the stream: the second reuses the first's
+    # scratch, so a status word left over from the first would show
+    k1, k2 = rand_keep(9 * tile + 3, 0.9), rand_keep(9 * tile + 3, 0.1)
+    cols = cols_of(9 * tile + 3, 2)
+    got1 = stream_compact(k1, cols)
+    got2 = stream_compact(k2, cols)
+    for got, keep in ((got1, k1), (got2, k2)):
+        want = stream_compact_plain(keep, cols)
+        max_abs_err(got[0] + (got[1],), want[0] + (want[1],))
+    return len(cases) + 2
+
+
+def prepped_entries(run, ids, seed, dev):
+    """Kernel 4's inputs for per-element run lengths ``run`` (as the prep
+    kernel lays them out), with random rule bytes; m and total on the
+    card."""
+    rng = np.random.default_rng(seed)
+    cap = len(run)
+    starts = np.cumsum(run) - run
+    nz = run > 0
+    m = int(nz.sum())
+    sv = np.full(cap, 0x7FFF_FFFF, np.int64)
+    ab = np.zeros(cap, np.int64)
+    bid = np.full(cap, 0xFFFF_FFFF, np.int64)
+    bmeta = np.zeros(cap, np.int32)
+    sv[:m] = starts[nz]
+    ab[:m] = np.flatnonzero(nz) + 1 - starts[nz]
+    bid[:m] = ids[nz]
+    bmeta[:m] = rng.integers(0, 256, m)
+    ameta = rng.integers(0, 256, cap).astype(np.int32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (
+        ids, ameta, sv, ab, bid, bmeta, m, int(run.sum())))
+
+
+def expand2_adversarial(dev):
+    """Kernel 4 on what a block-partitioned design can get wrong: one run
+    longer than several blocks, every run of length 1 (m = total, the most
+    runs a block can touch), block edges on run starts, runs one block
+    long, random short runs, m = 0; each with total in the middle of a
+    block and total > capacity, the rule on and off, and ids either side
+    of 2^24 - 1."""
+    rng = np.random.default_rng(8)
+    cap = 60_000
+    shapes = {}
+    r = np.zeros(cap, np.int64)
+    r[5] = 20_000
+    r[30_000:50_000:13] = rng.integers(1, 9, len(range(30_000, 50_000, 13)))
+    shapes["long run"] = r
+    r = np.ones(cap, np.int64)
+    r[-1] = 0
+    shapes["unit runs"] = r
+    r = np.zeros(cap, np.int64)
+    r[:40_000] = 8                       # starts 8 j: every block edge
+    shapes["edges on starts"] = r
+    r = np.zeros(cap, np.int64)
+    r[:50] = 1024
+    shapes["block-long runs"] = r
+    r = rng.integers(1, 12, cap) * (rng.random(cap) < 0.5)
+    shapes["random"] = np.minimum(r, cap - 1 - np.arange(cap))
+    shapes["m = 0"] = np.zeros(cap, np.int64)
+    n_cases = 0
+    for name, run in shapes.items():
+        total = int(run.sum())
+        for ids in (rng.integers(0, 1 << 20, cap),
+                    (1 << 24) - 1 - cap // 2 + np.arange(cap)):
+            args = prepped_entries(run, ids, n_cases, dev)
+            check(name != "unit runs" or int(args[6]) == total,
+                  "kernel 4 cases: unit runs must give m == total")
+            for P in (total + 3 * 1024 + 100, max(total - 777, 1)):
+                for rule in (True, False):
+                    xargs = args + (P, torch.tensor(rule, device=dev), 3)
+                    max_abs_err(expand_pairs_prepped(*xargs),
+                                expand_pairs_prepped_plain(*xargs))
+                    n_cases += 1
+    return n_cases
 
 
 def sorted_cols(key, meta, n, dev):
@@ -673,6 +826,8 @@ def main() -> int:
     _cuda.load()
     print(f"build: {len(KERNELS)} kernels from broadphase_tpu_torch/csrc in "
           f"{time.perf_counter() - t0:.1f} s -> {_cuda.library_path().name}")
+    print("ptxas: " + " | ".join(ptxas_summary(sorted(
+        {k for *_, names in KERNELS.values() for k in names} - {"Memset"}))))
 
     n_big = 1_000_000
     scene_big = bench_caps.bench_scene(3, n_big)
@@ -691,6 +846,14 @@ def main() -> int:
     print(f"adversarial: {n_cases} kernel cases exact (empty, one element, "
           f"ragged sizes, depth-0 and shallow boxes, outside boxes, "
           f"undersized tree, total > emit_cap, ids either side of 2^24-1; "
+          f"compaction: 8k+ tiles, tiles alternating all and none kept, "
+          f"one kept lane in the last tile, n one below, at and above a "
+          f"tile multiple, 1, 3 and 4 columns with distinct fills, two "
+          f"calls in a row on one stream; expansion: a run longer than "
+          f"several blocks, every run of length 1 (m = total), block edges "
+          f"on run starts, runs one block long, m = 0, each with total "
+          f"mid-block and total > capacity, rule on and off, ids either "
+          f"side of 2^24-1; "
           f"merge: empty churn, all tombstones, all inserts, churn outside "
           f"the tree's keys, empty tree, inserts equal to live entries, "
           f"short churn_count, whole-tree churn; v2 expansion: a run "
@@ -800,23 +963,35 @@ def main() -> int:
     # 8. every kernel timed at the main path's shapes, and the kernels line
     launches = {"step": step_launches, "frame": frame_launches,
                 "scan_v2": v2_launches}
+    # ms: CUDA events around one wrapper call (allocations and the host's
+    # enqueue included); device_ms: the profiler's device time of the
+    # kernel's own launches, per call over 10 calls
     rows = []
-    for name, (wrapper, src, rep, path) in KERNELS.items():
+    for name, (wrapper, src, rep, path, names) in KERNELS.items():
         args, plain, moved, library = timed[name]
         ms = cuda_ms(lambda: wrapper(*args))
+        device_ms = kernel_device_ms(lambda: wrapper(*args), names)
+        check(device_ms > 0, f"kernel {name}: the profiler shows no device "
+              f"time under {names}")
         plain_ms = cuda_ms(lambda: plain(*args))
-        library_ms = cuda_ms(library) if library is not None else None
+        library_ms = library_device_ms = None
+        if library is not None:
+            library_ms = cuda_ms(library)
+            library_device_ms = kernel_device_ms(library)
         bound_ms, bound_by = bound(moved)
-        print(f"kernel {name}: exact at the 1M shapes; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-              f"({moved / 1e6:.1f} MB), library "
-              + (f"{library_ms:.3f} ms" if library_ms is not None else
-                 "none") + f"; {launches[path][name]} launches per {path}")
+        lib = ("none" if library is None else f"{library_ms:.3f} ms (device "
+               f"{library_device_ms:.3f} ms)")
+        print(f"kernel {name}: exact at the 1M shapes; device {device_ms:.3f}"
+              f" ms, call {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({moved / 1e6:.1f} MB), library {lib}; "
+              f"{launches[path][name]} launches per {path}")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[path][name],
                      "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+                     "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms,
+                     "library_device_ms": library_device_ms})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,24 +15,32 @@ from broadphase_tpu.ops.pallas_compact import stream_compact as jax_stream
 from broadphase_tpu_torch.ops import compact as tcompact
 
 
+# distinct fills, one a column; "3cols" and "4cols" take random keep flags
+FILLS = (0xFFFF_FFFF, 7, 0, 0x1234_5678)
+
+
 def _case(n, mode, seed):
     rng = np.random.default_rng(seed)
-    keep = {"random": rng.random(n) < 0.37,
-            "all": np.ones(n, bool),
+    ncols = {"3cols": 3, "4cols": 4}.get(mode, 2)
+    keep = {"all": np.ones(n, bool),
             "none": np.zeros(n, bool),
-            "last": np.arange(n) == n - 1}[mode]
+            "last": np.arange(n) == n - 1}.get(mode, rng.random(n) < 0.37)
     cols = (rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32),
-            np.arange(n, dtype=np.uint32))
+            np.arange(n, dtype=np.uint32),
+            rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32),
+            (np.arange(n, dtype=np.uint32) * 3) ^ 0xABCD)[:ncols]
     return keep, cols
 
 
 @pytest.mark.parametrize("n,mode", [
     (4096, "random"), (5000, "random"),      # aligned and ragged length
     (3000, "all"), (3000, "none"), (2049, "last"), (1, "all"), (1, "none"),
+    (3000, "3cols"), (3000, "4cols"),
+    (3 * 4096 + 123, "random"),              # several of the JAX tiles
 ])
 def test_stream_compact_matches_jax(n, mode):
     keep, cols = _case(n, mode, seed=n)
-    fills = (0xFFFF_FFFF, 7)
+    fills = FILLS[:len(cols)]
     got, cnt = tcompact.stream_compact(
         torch.as_tensor(keep),
         tuple(torch.as_tensor(c.astype(np.int64)) for c in cols), fills)

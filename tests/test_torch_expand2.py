@@ -121,3 +121,65 @@ def test_expand_matches_jax_kernel_and_xla(rule, slack):
     np.testing.assert_array_equal(
         a.numpy()[(a != b).numpy()].astype(np.uint32),
         np.asarray(xa)[np.asarray(valid)])
+
+
+def _entries(run, seed):
+    """Prep entries (as ``prep_runs`` lays them out) of the run lengths
+    ``run``, with random ids below 2^24 - 1 and random rule bytes."""
+    rng = np.random.default_rng(seed)
+    cap = len(run)
+    starts = np.cumsum(run) - run
+    nz = run > 0
+    j = np.flatnonzero(nz)
+    m = len(j)
+    ids = rng.integers(0, (1 << 24) - 1, cap)
+    ameta = rng.integers(0, 256, cap)
+    meta = rng.integers(0, 256, cap)
+    sv = np.full(cap, tprep.HUGE)
+    ab = np.zeros(cap, np.int64)
+    bid = np.full(cap, tprep.PAD_ID)
+    bmeta = np.zeros(cap, np.int64)
+    sv[:m], ab[:m] = starts[nz], j + 1 - starts[nz]
+    bid[:m], bmeta[:m] = ids[nz], meta[nz]
+    return ids, ameta, sv, ab, bid, bmeta, m, int(run.sum())
+
+
+def _runs(shape):
+    run = np.zeros(3000, np.int64)
+    if shape == "long_run":      # one run over most slots, short ones after
+        run[2] = 2990
+        run[2000:2990:9] = np.arange(110) % 5 + 1
+    else:                        # every run of length 1: m == total
+        run[:-1] = 1
+    return run
+
+
+@pytest.mark.parametrize("rule", [True, False])
+@pytest.mark.parametrize("shape", ["long_run", "unit_runs"])
+def test_expand_synthetic_runs_match_jax_kernel(shape, rule):
+    ids, ameta, sv, ab, bid, bmeta, m, total = _entries(_runs(shape), 11)
+    if shape == "unit_runs":
+        assert m == total
+    P = total + 300                          # total mid-buffer
+    live = np.arange(len(sv)) < m
+    if rule:     # the JAX kernel takes the rule bytes packed under the ids
+        ids_a = (ids << 8) | ameta
+        bid_c = np.where(live, (bid << 8) | bmeta, blayer.PAD_ID)
+    else:
+        ids_a, bid_c = ids, bid
+    ja, jb = jexpand(jnp.asarray(ids_a.astype(np.uint32)),
+                     jnp.asarray(sv.astype(np.int32)),
+                     jnp.asarray(ab.astype(np.int32)),
+                     jnp.asarray(bid_c.astype(np.uint32)),
+                     jnp.asarray(total, jnp.int32), P, rule=rule, dim=3,
+                     interpret=True)
+    t = [torch.as_tensor(x) for x in (ids, ameta.astype(np.int32), sv, ab,
+                                      bid, bmeta.astype(np.int32))]
+    a, b = texpand.expand_pairs_prepped(*t, torch.tensor(m),
+                                        torch.tensor(total), P,
+                                        torch.tensor(rule), 3)
+    np.testing.assert_array_equal(a.numpy().astype(np.uint32), np.asarray(ja))
+    np.testing.assert_array_equal(b.numpy().astype(np.uint32), np.asarray(jb))
+    assert (a.numpy()[total:] == tprep.PAD_ID).all()
+    if not rule:
+        assert (a.numpy()[:total] != tprep.PAD_ID).all()
