@@ -1,21 +1,48 @@
 // Kernel 1: fused cell emission for build.
 //
-// Replaces broadphase_tpu/ops/pallas_build.py::emit_build.  One thread per
-// object runs geom.depth_for_bounds -> truncate_to_depth -> per-axis spans
-// and steps -> Morton spreads -> up to A^dim cell keys with their
-// block-offset aux bits, exactly in u32 arithmetic as the JAX code does.
-// Valid cells of contained objects are appended through a block-wide scan
-// of the per-thread cell counts and one atomicAdd on a global cursor, so
-// the emission order is not deterministic; build sorts the full
+// Replaces broadphase_tpu/ops/pallas_build.py::emit_build.  Each object
+// runs geom.depth_for_bounds -> truncate_to_depth -> per-axis spans and
+// steps -> Morton spreads -> up to A^dim cell keys with their block-offset
+// aux bits, exactly in u32 arithmetic as the JAX code does.  Valid cells of
+// contained objects are appended at a block's base on one global cursor,
+// so the emission order is not deterministic; build sorts the full
 // (key, id, aux) tuple right after, which makes the tree deterministic.
 // Writes stop at out_cap, but the cursor counts every valid cell.
 //
+// One block takes 256 objects:
+//
+//  - it loads their (dim) bounds, contained bytes and ids as contiguous
+//    runs into shared memory, and each thread then reads its own object;
+//  - each axis has only A distinct cell coordinates, tmin + a * step, so a
+//    thread spreads each of them once, with the spec's constant shift and
+//    mask stages (index.py::_spread_stages, at most 5), not a loop over
+//    the bits; a cell's Morton code is the OR of its axes' codes;
+//  - A is a template parameter: 2, LayerBuilder's default, unrolls the
+//    cell walk with no division; one more instantiation takes any A;
+//  - a block scan of the objects' cell counts and one atomicAdd on the
+//    cursor place the block's cells; they are staged in shared memory in
+//    that order and written as one run with coalesced stores (keys, ids
+//    looked up from the staged object, aux), 2048 cells at a time: all of
+//    them at once for A = 2 in 2D or 3D;
+//  - the cell-overflow flag takes one atomic a block.
+//
 // Bound on the H100: device memory.  It reads 2 * dim * 8 + 9 bytes per
-// object and writes 20 bytes per emitted cell; the per-thread integer work
-// (spreads of up to 2 * dim coordinates) is small beside that.
-#include "scan.cuh"
+// object and writes 20 bytes per emitted cell; the integer work (2 * dim
+// spreads of 5 stages an object) is small beside that.
+#include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStageCells = 2048;  // 256 objects x 8 cells (A = 2, 3D)
+constexpr int kSpreadStages = 5;   // for axis_bits in [9, 32]
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Spread {
+  unsigned long long mask[kSpreadStages];
+  int shift[kSpreadStages];
+};
 
 struct BuildArgs {
   const long long* lmin;  // (n, dim) u32 values held in int64
@@ -23,8 +50,9 @@ struct BuildArgs {
   const unsigned char* contained;
   const long long* ids;
   long long n;
-  int dim, axis_bits, depth_bits, A;
+  int axis_bits, depth_bits, A;
   unsigned min_depth;
+  Spread spread;
   long long out_cap;
   long long* out_keys;
   long long* out_ids;
@@ -39,83 +67,207 @@ __device__ __forceinline__ unsigned truncate_to_depth(unsigned x,
   return x & ~((1u << low) - 1u);
 }
 
-__device__ __forceinline__ long long spread(unsigned x, int axis_bits,
-                                            int dim) {
-  x >>= (32 - axis_bits);
-  long long out = 0;
-  for (int b = 0; b < axis_bits; ++b)
-    out |= (long long)((x >> b) & 1u) << (b * dim);
-  return out;
+// The top axis_bits of x, bit b moved to bit b * dim.
+__device__ __forceinline__ unsigned long long spread(unsigned x,
+                                                     const BuildArgs& p) {
+  unsigned long long v = x >> (32 - p.axis_bits);
+#pragma unroll
+  for (int s = 0; s < kSpreadStages; ++s)
+    v = (v | (v << p.spread.shift[s])) & p.spread.mask[s];
+  return v;
 }
 
-__global__ void __launch_bounds__(bpt::kThreads)
+// Exclusive sum of v over the block; *total receives the block's sum.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* total) {
+  __shared__ int warp_part[kWarps];
+  __shared__ int block_total;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += o;
+  }
+  if (lane == 31) warp_part[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kWarps ? warp_part[lane] : 0;
+    int winc = w;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, winc, d);
+      if (lane >= d) winc += o;
+    }
+    if (lane < kWarps) warp_part[lane] = winc - w;
+    if (lane == kWarps - 1) block_total = winc;
+  }
+  __syncthreads();
+  *total = block_total;
+  return inc - v + warp_part[warp];
+}
+
+// A_T > 0: A is A_T; A_T == 0: A is p.A, any value >= 1.
+template <int DIM, int A_T>
+__global__ void __launch_bounds__(kThreads)
 build_kernel(BuildArgs p) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int dim = p.dim, A = p.A;
-  unsigned tmin[3] = {0, 0, 0};
-  long long naxis[3] = {1, 1, 1};
+  __shared__ long long s_lo[kThreads * DIM], s_hi[kThreads * DIM];
+  __shared__ long long s_ids[kThreads];
+  __shared__ long long stage_key[kStageCells];
+  __shared__ unsigned short stage_tag[kStageCells];  // object << 8 | aux
+  __shared__ unsigned long long s_base;
+  const int A = A_T > 0 ? A_T : p.A;
+  const int t = threadIdx.x;
+  const long long obj0 = (long long)blockIdx.x * kThreads;
+  const int nb = (int)min(p.n - obj0, (long long)kThreads);
+  for (int q = t; q < nb * DIM; q += kThreads) {
+    s_lo[q] = p.lmin[obj0 * DIM + q];
+    s_hi[q] = p.lmax[obj0 * DIM + q];
+  }
+  const bool mine = t < nb && p.contained[obj0 + t];
+  if (t < nb) s_ids[t] = p.ids[obj0 + t];
+  __syncthreads();
+
+  // lim: cells along the axis, min(naxis, A)
+  unsigned tmin[DIM] = {}, lim[DIM];
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) lim[k] = 1;
   unsigned depth = 0, step = 0;
-  long long cells = 0;
-  if (i < p.n && p.contained[i]) {
-    unsigned lmn[3], lmx[3];
+  int cells = 0;
+  bool ovf = false;
+  if (mine) {
+    unsigned lmn[DIM], lmx[DIM];
     unsigned size_max = 0;
-    for (int k = 0; k < dim; ++k) {
-      lmn[k] = (unsigned)p.lmin[i * dim + k];
-      lmx[k] = (unsigned)p.lmax[i * dim + k];
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) {
+      lmn[k] = (unsigned)s_lo[t * DIM + k];
+      lmx[k] = (unsigned)s_hi[t * DIM + k];
       const unsigned s = lmx[k] - lmn[k] + 1u;  // wrapping u32
       size_max = s > size_max ? s : size_max;
     }
     const unsigned v = size_max - 1u;  // wrapping u32
-    unsigned lz = v == 0 ? 32u : (unsigned)__clz(v);
+    const unsigned lz = v == 0 ? 32u : (unsigned)__clz(v);
     depth = lz > p.min_depth ? lz : p.min_depth;
     depth = depth < (unsigned)p.axis_bits ? depth : (unsigned)p.axis_bits;
-    const unsigned shift = depth == 0 ? 31u : (32u - depth < 31u ? 32u - depth : 31u);
+    const unsigned shift =
+        depth == 0 ? 31u : (32u - depth < 31u ? 32u - depth : 31u);
     step = depth == 0 ? 0u : 1u << shift;
-    bool ovf = false;
     cells = 1;
-    for (int k = 0; k < dim; ++k) {
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) {
       tmin[k] = truncate_to_depth(lmn[k], depth);
       const unsigned tmax = truncate_to_depth(lmx[k], depth);
       const unsigned span = depth == 0 ? 0u : (tmax - tmin[k]) >> shift;
-      naxis[k] = (long long)span + 1;
-      ovf |= naxis[k] > A;
-      cells *= naxis[k] < A ? naxis[k] : A;
+      // naxis = span + 1 <= 2^31: no wrap
+      ovf |= span >= (unsigned)A;
+      lim[k] = span < (unsigned)A ? span + 1 : (unsigned)A;
+      cells *= (int)lim[k];
     }
-    if (ovf) atomicOr(&p.stats[1], 1ull);
   }
 
-  long long block_cells;
-  const long long off = bpt::block_exclusive_scan(cells, &block_cells);
-  __shared__ unsigned long long base;
-  if (threadIdx.x == 0 && block_cells > 0)
-    base = atomicAdd(&p.stats[0], (unsigned long long)block_cells);
-  __syncthreads();
-  if (cells == 0) return;
-
-  long long pos = (long long)base + off;
-  int n_slots = 1;
-  for (int k = 0; k < dim; ++k) n_slots *= A;
-  for (int s = 0; s < n_slots; ++s) {
-    int rem = s;
-    bool valid = true;
-    long long morton = 0;
-    int aux = 0;
-    for (int k = 0; k < dim; ++k) {
-      const int a = rem % A;
-      rem /= A;
-      valid &= a < naxis[k];
-      aux |= (a > 0) << k;
-      morton |= spread(tmin[k] + (unsigned)a * step, p.axis_bits, dim) << k;
+  // each axis's cell codes, spread once: code0 for a = 0, code1 for a = 1
+  // (A_T == 2; other A spread per cell)
+  unsigned long long code0[DIM] = {}, code1[DIM] = {};
+  if (mine) {
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) {
+      code0[k] = spread(tmin[k], p) << k;
+      code1[k] = A_T == 2 && lim[k] > 1 ? spread(tmin[k] + step, p) << k : 0;
     }
-    if (!valid) continue;
-    if (pos < p.out_cap) {
-      p.out_keys[pos] =
-          depth == 0 ? 0 : (morton << p.depth_bits) | (long long)depth;
-      p.out_ids[pos] = p.ids[i];
-      p.out_aux[pos] = depth == 0 ? 0 : aux;
-    }
-    ++pos;
   }
+
+  int block_cells;
+  const int off = block_exclusive_sum(cells, &block_cells);
+  if (t == 0 && block_cells > 0)
+    s_base = atomicAdd(&p.stats[0], (unsigned long long)block_cells);
+  if (__syncthreads_or(ovf) && t == 0) atomicOr(&p.stats[1], 1ull);
+  const long long base = (long long)s_base;
+
+  for (int r0 = 0; r0 < block_cells; r0 += kStageCells) {
+    // this thread's cells with block index in [r0, r0 + kStageCells)
+    const int first = max(r0 - off, 0);
+    const int last = min(r0 + kStageCells - off, cells);
+    unsigned a[DIM] = {};  // the cell's per-axis slot, x fastest
+    if (first > 0) {  // a later round (A > 2 only)
+      unsigned rem = (unsigned)first;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+        a[k] = rem % lim[k];
+        rem /= lim[k];
+      }
+    }
+    for (int c = first; c < last; ++c) {
+      unsigned long long morton = 0;
+      int aux = 0;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+        if (A_T == 2)
+          morton |= a[k] ? code1[k] : code0[k];
+        else
+          morton |= a[k] ? spread(tmin[k] + a[k] * step, p) << k : code0[k];
+        aux |= (a[k] > 0) << k;
+      }
+      const int q = off + c - r0;
+      stage_key[q] = depth == 0 ? 0
+                                : (long long)(morton << p.depth_bits) |
+                                      (long long)depth;
+      stage_tag[q] = (unsigned short)((t << 8) | (depth == 0 ? 0 : aux));
+      // next cell: odometer over the axes' slots
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+        if (++a[k] < lim[k]) break;
+        a[k] = 0;
+      }
+    }
+    __syncthreads();
+    const int staged = min(block_cells - r0, kStageCells);
+    for (int i = t; i < staged; i += kThreads) {
+      const long long pos = base + r0 + i;
+      if (pos < p.out_cap) {
+        const unsigned tag = stage_tag[i];
+        p.out_keys[pos] = stage_key[i];
+        p.out_ids[pos] = s_ids[tag >> 8];
+        p.out_aux[pos] = (int)(tag & 0xFF);
+      }
+    }
+    __syncthreads();  // the next round reuses the stage
+  }
+}
+
+unsigned long long positions_mask(int nbits, int stride, int granularity) {
+  unsigned long long m = 0;
+  for (int i = 0; i < nbits; ++i)
+    m |= 1ull << ((i / granularity) * granularity * stride +
+                  i % granularity);
+  return m;
+}
+
+// index.py::_spread_stages, padded at the front with no-op stages (shift
+// 0, all bits kept) to kSpreadStages.
+bool spread_stages(int nbits, int stride, Spread* s) {
+  int top = 1;
+  while (top < nbits) top <<= 1;
+  int n_stages = 0;
+  for (int c = top >> 1; c >= 1; c >>= 1) ++n_stages;
+  if (n_stages > kSpreadStages || nbits * stride > 64) return false;
+  int i = 0;
+  for (; i < kSpreadStages - n_stages; ++i) {
+    s->shift[i] = 0;
+    s->mask[i] = ~0ull;
+  }
+  for (int c = top >> 1; c >= 1; c >>= 1, ++i) {
+    s->shift[i] = c * (stride - 1);
+    s->mask[i] = positions_mask(nbits, stride, c);
+  }
+  return true;
+}
+
+template <int DIM>
+void launch_dim(const BuildArgs& p, unsigned blocks, cudaStream_t s) {
+  if (p.A == 2)
+    build_kernel<DIM, 2><<<blocks, kThreads, 0, s>>>(p);
+  else
+    build_kernel<DIM, 0><<<blocks, kThreads, 0, s>>>(p);
 }
 
 }  // namespace
@@ -127,17 +279,22 @@ extern "C" int bpt_build(const void* lmin, const void* lmax,
                          long long depth_bits, long long slots_per_axis,
                          long long min_depth, long long out_cap,
                          void* stream) {
-  if (dim < 1 || dim > 3) return (int)cudaErrorInvalidValue;
   BuildArgs p{(const long long*)lmin, (const long long*)lmax,
               (const unsigned char*)contained, (const long long*)ids, n,
-              (int)dim, (int)axis_bits, (int)depth_bits,
-              (int)slots_per_axis, (unsigned)min_depth, out_cap,
+              (int)axis_bits, (int)depth_bits, (int)slots_per_axis,
+              (unsigned)min_depth, {}, out_cap,
               (long long*)out_keys, (long long*)out_ids, (int*)out_aux,
               (unsigned long long*)stats};
+  if (dim < 2 || dim > 3 || slots_per_axis < 1 ||
+      !spread_stages((int)axis_bits, (int)dim, &p.spread))
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const long long blocks = (n + bpt::kThreads - 1) / bpt::kThreads;
-    build_kernel<<<(unsigned)blocks, bpt::kThreads, 0,
-                   (cudaStream_t)stream>>>(p);
+    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dim == 2)
+      launch_dim<2>(p, blocks, s);
+    else
+      launch_dim<3>(p, blocks, s);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // Entry points every wrapper shares: the message of a CUDA error code, and
-// the tile of the three-phase scan (scan.cuh), with which the run-ends,
-// prep and merge wrappers size their scratch.
+// the tile of the three-phase scan (scan.cuh), with which the run-ends and
+// merge wrappers size their scratch.
 #include <cuda_runtime.h>
 
 #include "scan.cuh"

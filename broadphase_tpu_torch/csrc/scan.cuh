@@ -8,11 +8,11 @@
 //                           exclusive prefix (tile offset + in-tile prefix)
 //                           and does its own scatter with it.
 //
-// f(i) is a functor giving element i's value: an int64 count (compact), or
-// an (int64, int64) pair (prep: run length and nonempty flag, scanned
-// together).  Phase 3 re-reads the inputs instead of storing the prefix,
+// f(i) is a functor giving element i's value, an int64 count.  Phase 3
+// re-reads the inputs instead of storing the prefix,
 // so the scan moves the input twice and writes only the tile sums.
-// Used by compact.cu (kernel 5) and prep.cu (kernel 3).
+// Used by merge.cu (kernel 6); runends.cu (kernel 2) takes only its tile
+// shape.  Kernels 3 and 5 use the single pass of scan1.cuh.
 #pragma once
 
 #include <cstdint>
@@ -25,20 +25,8 @@ constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct I64x2 {
-  long long x, y;
-};
-
-__device__ __forceinline__ I64x2 operator+(I64x2 a, I64x2 b) {
-  return {a.x + b.x, a.y + b.y};
-}
-
 __device__ __forceinline__ long long shfl_up(long long v, int d) {
   return __shfl_up_sync(kFull, v, d);
-}
-
-__device__ __forceinline__ I64x2 shfl_up(I64x2 v, int d) {
-  return {shfl_up(v.x, d), shfl_up(v.y, d)};
 }
 
 // Exclusive prefix sum of one value per thread over a block of kThreads

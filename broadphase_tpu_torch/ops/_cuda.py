@@ -120,7 +120,7 @@ def load() -> ctypes.CDLL:
                        for c in sig]
     lib.bpt_error_string.restype = ctypes.c_char_p
     lib.bpt_error_string.argtypes = [ctypes.c_int]
-    for name in ("bpt_scan_tile", "bpt_compact_tile"):
+    for name in ("bpt_scan_tile", "bpt_compact_tile", "bpt_prep_tile"):
         getattr(lib, name).restype = ctypes.c_int64
         getattr(lib, name).argtypes = []
     _lib = lib
@@ -151,6 +151,12 @@ def compact_tile() -> int:
     (``compact.cu``) takes; its scratch is one status word a tile plus
     the ticket."""
     return load().bpt_compact_tile()
+
+
+def prep_tile() -> int:
+    """Lanes a block of the single-pass prep kernel (``prep.cu``) takes;
+    its scratch is two status words a tile plus the ticket."""
+    return load().bpt_prep_tile()
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -1,11 +1,13 @@
 """Kernel 1: fused cell emission for build (``csrc/build.cu``).
 
 Replaces ``broadphase_tpu/ops/pallas_build.py::emit_build``.  One thread per
-object computes its depth, truncation, spans and Morton-spread cell keys,
-and appends the valid cells of contained objects through a block scan and
-one atomic cursor.  Bound by device memory: ~57 bytes read per object and
-20 bytes written per cell.  Quantization stays in torch ahead of the
-kernel (``geom.to_local``), as the JAX package keeps it in XLA.
+object computes its depth, truncation, spans and Morton-spread cell keys
+(each axis coordinate spread once, by constant stages); a block stages the
+valid cells of its contained objects in shared memory and writes them
+coalesced at a base taken from one atomic cursor.  Bound by device memory:
+~57 bytes read per object and 20 bytes written per cell.  Quantization
+stays in torch ahead of the kernel (``geom.to_local``), as the JAX package
+keeps it in XLA.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ and the nonempty runs, in order, become entries (sv = start,
 ab = j + 1 - start, bid = ids[j], bmeta = meta[j]).  The b-side rule byte
 rides in its own column instead of being packed into the id.  ``wrapped``
 is set exactly when the JAX package's int32 prefix sum would wrap
-(total >= 2^31).  Bound by device memory; the kernel shares the
-device-wide scan of ``csrc/scan.cuh`` with the compaction kernel.
+(total >= 2^31).  Bound by device memory; one launch after one memset,
+by the wide decoupled look-back of ``csrc/scan1.cuh``.
 """
 
 from __future__ import annotations
@@ -75,7 +75,8 @@ def prep_runs(e: torch.Tensor, ids: torch.Tensor, meta: torch.Tensor,
     bid = torch.empty_like(sv)
     bmeta = torch.empty(cap, dtype=torch.int32, device=dev)
     stats = torch.empty(3, dtype=torch.int64, device=dev)
-    scratch = torch.empty(2 * (_cuda.scan_tiles(cap) + 1),
+    # two status words a tile, then the ticket
+    scratch = torch.empty(2 * -(-cap // _cuda.prep_tile()) + 1,
                           dtype=torch.int64, device=dev)
     _cuda.launch("bpt_prep", e, ids, meta, count, sv, ab, bid, bmeta, stats,
                  scratch, cap)

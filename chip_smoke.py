@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -56,7 +57,7 @@ KERNELS = {
                  ("tile_first", "carry_kernel", "run_ends_kernel")),
     "prep_runs": (prep_runs, "broadphase_tpu_torch/csrc/prep.cu",
                   "broadphase_tpu/ops/pallas_prep.py:173", "step",
-                  ("prep_scatter", "tile_sums")),
+                  ("prep_onepass", "Memset")),
     "expand_pairs_prepped": (expand_pairs_prepped,
                              "broadphase_tpu_torch/csrc/expand2.cu",
                              "broadphase_tpu/ops/pallas_expand2.py:307",
@@ -89,12 +90,12 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 LAYER_OF_KERNEL = (("build_kernel", "k1 build"), ("tile_first", "k2 run ends"),
                    ("carry_kernel", "k2 run ends"),
                    ("run_ends_kernel", "k2 run ends"),
-                   ("prep_scatter", "k3 prep"),
+                   ("prep_onepass", "k3 prep"),
                    ("expand_partitioned", "k4 expand"),
                    ("compact_onepass", "k5 compact"),
                    ("merge_rank", "k6 merge"), ("merge_scatter", "k6 merge"),
                    ("expand_v2", "k7 expand v2"),
-                   ("tile_sums", "k3/k6 scan phases"),
+                   ("tile_sums", "k6 scan phases"),
                    ("RadixSort", "torch.sort"), ("Memcpy", "copies"),
                    ("Memset", "copies"))
 
@@ -171,12 +172,16 @@ def kernel_device_ms(fn, names=None, reps: int = 10) -> float:
 
 def ptxas_summary(names) -> list:
     """Registers, shared memory and spills of each kernel whose mangled
-    name holds one of ``names``, from the build's ``-Xptxas=-v`` report."""
+    name holds one of ``names``, from the build's ``-Xptxas=-v`` report;
+    a template's integer arguments follow its name (``build_kernel<3,2>``)."""
     log = _cuda.ptxas_log(_cuda.library_path())
     fn, spill, out = None, "", []
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             fn = next((k for k in names if k in line), None)
+            targs = re.findall(r"Li(-?\d+)E", line)
+            if fn and targs:
+                fn += "<" + ",".join(targs) + ">"
             spill = ""
         elif fn and "spill" in line:
             spill = line.strip()
@@ -242,15 +247,17 @@ def scan_inputs(state):
     return dep, lca, bmeta, ameta, rule
 
 
-def compare_build(inputs, out_cap):
-    lmin, lmax, contained, ids = inputs
-    got = emit_build(SPEC, lmin, lmax, contained, ids, 0, out_cap)
-    want = emit_build_plain(SPEC, lmin, lmax, contained, ids, 0, out_cap)
+def compare_build(inputs, out_cap, spec=SPEC, min_depth=0, slots=2):
+    """Kernel 1 against its plain version: count and cell-overflow flag
+    exact, and the sorted cells when they all fit.  Returns (max_abs_err,
+    the plain version's (count, flag))."""
+    args = (spec, *inputs, min_depth, out_cap, slots)
+    got, want = emit_build(*args), emit_build_plain(*args)
     err = max_abs_err(got[3:], want[3:])
     if int(want[3]) <= out_cap:   # the kept subset is arbitrary on overflow
-        err = max(err, max_abs_err(layer._sort_tree(SPEC, *got[:3]),
-                                   layer._sort_tree(SPEC, *want[:3])))
-    return err
+        err = max(err, max_abs_err(layer._sort_tree(spec, *got[:3]),
+                                   layer._sort_tree(spec, *want[:3])))
+    return err, (int(want[3]), bool(want[4]))
 
 
 def compare_all(state, inputs, emit_cap):
@@ -259,7 +266,7 @@ def compare_all(state, inputs, emit_cap):
     function moves, library call or None)})."""
     errs, timed = {}, {}
     cap = state.keys.shape[0]
-    errs["emit_build"] = compare_build(inputs, cap)
+    errs["emit_build"], _ = compare_build(inputs, cap)
     timed["emit_build"] = ((SPEC, *inputs, 0, cap), emit_build_plain,
                            nbytes(*inputs) + 20 * cap, None)
 
@@ -377,7 +384,8 @@ def adversarial(dev):
         for emit_cap in (64 * n + 1, 1000):  # the second is below total
             compare_all(state, inputs, emit_cap)
             n_cases += 5
-    return (n_cases + compact_adversarial(dev) + expand2_adversarial(dev)
+    return (n_cases + compact_adversarial(dev) + prep_adversarial(dev)
+            + build_adversarial(dev) + expand2_adversarial(dev)
             + merge_adversarial(dev) + expand_adversarial(dev))
 
 
@@ -420,6 +428,99 @@ def compact_adversarial(dev):
         want = stream_compact_plain(keep, cols)
         max_abs_err(got[0] + (got[1],), want[0] + (want[1],))
     return len(cases) + 2
+
+
+def prep_adversarial(dev):
+    """Kernel 3 on what a single-pass tiled design can get wrong: 1000+
+    tiles, m = 0, every lane nonempty, count = 0, count = cap, count inside
+    the last tile, cap one below, at and one above a tile multiple, a total
+    of at least 2^31 across tiles (wrapped) and one past 2^40 (tile sums
+    above 2^32), and two calls in a row on one stream (stale status
+    words).  The pads past count carry e = 0, as the run-ends kernel
+    leaves them."""
+    tile = _cuda.prep_tile()
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def operands(cap):
+        ids = torch.randint(0, 1 << 32, (cap,), generator=gen, device=dev)
+        meta = torch.randint(0, 256, (cap,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return ids, meta
+
+    def ends(cap, count, style):
+        lane = torch.arange(cap, device=dev)
+        e = {"random": lane + torch.randint(0, 50, (cap,), generator=gen,
+                                            device=dev),
+             "dense": lane + 2,           # run 1: every lane but the last
+             "empty": lane + 1,           # run 0 everywhere: m = 0
+             "to_end": torch.full_like(lane, cap)}[style]
+        return torch.where(lane < count, e, 0).to(torch.int32)
+
+    def check_case(e, count, operands_):
+        cnt = torch.tensor(count, device=dev)
+        got = prep_runs(e, *operands_, cnt)
+        want = prep_runs_plain(e, *operands_, cnt)
+        max_abs_err(got, want)
+        return want
+
+    cases = [(1001 * tile + 77, 1001 * tile + 70, "random"),   # 1000+ tiles
+             (5 * tile + 9, 5 * tile + 9, "empty"),
+             (5 * tile + 9, 5 * tile + 9, "dense"),
+             (5 * tile + 9, 0, "random"),
+             (5 * tile + 9, 4 * tile + 100, "random")]
+    cases += [(7 * tile + d, 7 * tile + d, "random") for d in (-1, 0, 1)]
+    cases += [(65_537, 65_537, "to_end"), (1_500_000, 1_500_000, "to_end")]
+    for cap, count, style in cases:
+        want = check_case(ends(cap, count, style), count, operands(cap))
+        if style == "to_end":
+            check(bool(want[6]) and int(want[5]) == count * (count - 1) // 2,
+                  f"prep case cap {cap}: total {int(want[5])} not wrapped")
+        if style == "empty" or count == 0:
+            check(int(want[4]) == 0, f"prep case cap {cap}: m != 0")
+    # two calls in a row on the stream: the second reuses the first's
+    # scratch, so a status word left over from the first would show
+    cap = 9 * tile + 3
+    ops_ = operands(cap)
+    first, second = ends(cap, cap, "dense"), ends(cap, cap - 5, "random")
+    got1 = prep_runs(first, *ops_, torch.tensor(cap, device=dev))
+    got2 = prep_runs(second, *ops_, torch.tensor(cap - 5, device=dev))
+    max_abs_err(got1, prep_runs_plain(first, *ops_, cap))
+    max_abs_err(got2, prep_runs_plain(second, *ops_, cap - 5))
+    return len(cases) + 2
+
+
+def build_adversarial(dev):
+    """Kernel 1 on each spec with A = 2 and A = 3: depth-0 objects, min_depth
+    0, 4 and 12 (the last sets the cell-overflow flag), a scene with half of
+    its objects outside the system box, n one below, at and one above a
+    256-object block, and an undersized out_cap (count and flag only)."""
+    n_cases, flags, over_cap = 0, set(), False
+    for spec in (Index64_3D, Index64_2D, Index32_2D):
+        scene = with_box(bench_caps.bench_scene(spec.dim, 3000, seed=11),
+                         0.0, 1.0, 3, 12)            # three depth-0 objects
+        smin, smax, bmin, bmax, ids = scene
+        shift = (0.5 * (smax - smin)).astype(np.float32)
+        outside = (smin, smax, bmin - shift, bmax - shift, ids)
+        for sc in (scene, outside):
+            inputs = build_inputs(sc, dev)
+            n = inputs[3].shape[0]
+            for slots in (2, 3):
+                for min_depth in (0, 4, 12):
+                    for out_cap in (slots ** spec.dim * n, n // 2):
+                        _, (count, flag) = compare_build(
+                            inputs, out_cap, spec, min_depth, slots)
+                        flags.add(flag)
+                        over_cap |= count > out_cap
+                        n_cases += 1
+        inputs = build_inputs(scene, dev)
+        for n in (255, 256, 257, 511, 513):
+            for slots in (2, 3):
+                compare_build(tuple(x[:n] for x in inputs), 27 * n, spec, 0,
+                              slots)
+                n_cases += 1
+    check(flags == {False, True} and over_cap, "kernel 1 cases: the cell-"
+          "overflow flag or an undersized out_cap was never reached")
+    return n_cases
 
 
 def prepped_entries(run, ids, seed, dev):
@@ -849,7 +950,13 @@ def main() -> int:
           f"compaction: 8k+ tiles, tiles alternating all and none kept, "
           f"one kept lane in the last tile, n one below, at and above a "
           f"tile multiple, 1, 3 and 4 columns with distinct fills, two "
-          f"calls in a row on one stream; expansion: a run longer than "
+          f"calls in a row on one stream; prep: 1000+ tiles, m = 0, every "
+          f"lane nonempty, count = 0, count = cap and inside the last tile, "
+          f"cap around a tile multiple, total >= 2^31 (wrapped) and > 2^40,"
+          f" two calls in a row; build: the three specs at A = 2 and 3, "
+          f"depth-0 objects, min_depth 0/4/12 (cell overflow), half the "
+          f"objects outside, n around the 256-object block, undersized "
+          f"out_cap; expansion: a run longer than "
           f"several blocks, every run of length 1 (m = total), block edges "
           f"on run starts, runs one block long, m = 0, each with total "
           f"mid-block and total > capacity, rule on and off, ids either "

@@ -35,17 +35,19 @@ def _multiset(keys_u64, ids, aux):
     return keys_u64[order], ids[order], aux[order]
 
 
-def _compare(spec, smin, smax, bmin, bmax, ids, out_cap, min_depth=0):
+def _compare(spec, smin, smax, bmin, bmax, ids, out_cap, min_depth=0,
+             slots=2):
     tspec = getattr(tidx, spec.name)
     lmin, lmax, contained = _quantized(smin, smax, bmin, bmax)
     jk, ji, ja, jc, jo = jax_emit_build(
         spec, jnp.asarray(lmin), jnp.asarray(lmax), jnp.asarray(contained),
-        jnp.asarray(ids), jnp.uint32(min_depth), out_cap, interpret=True)
+        jnp.asarray(ids), jnp.uint32(min_depth), out_cap,
+        slots_per_axis=slots, interpret=True)
     tk, ti, ta, tc, to = tbuild.emit_build(
         tspec, torch.as_tensor(lmin.astype(np.int64)),
         torch.as_tensor(lmax.astype(np.int64)),
         torch.as_tensor(contained.copy()),
-        torch.as_tensor(ids.astype(np.int64)), min_depth, out_cap)
+        torch.as_tensor(ids.astype(np.int64)), min_depth, out_cap, slots)
     assert int(tc) == int(jc)
     assert bool(to) == bool(jo)
     live = min(int(tc), out_cap)
@@ -62,29 +64,39 @@ def _compare(spec, smin, smax, bmin, bmax, ids, out_cap, min_depth=0):
     return int(tc), bool(to)
 
 
-@pytest.mark.parametrize("out_factor", [4, 1])
-def test_generated_scene_3d(out_factor):
-    """out_factor 1 leaves the tree below the cell count: overflow."""
+@pytest.mark.parametrize("out_factor,slots,min_depth", [
+    pytest.param(4, 2, 0, id="4"), pytest.param(1, 2, 0, id="1"),
+    pytest.param(27, 3, 0, id="slots3"),
+    pytest.param(27, 3, 6, id="slots3-min_depth6")])
+def test_generated_scene_3d(out_factor, slots, min_depth):
+    """out_factor 1 leaves the tree below the cell count: overflow.  Three
+    slots per axis with a raised min_depth emit objects three cells wide."""
     n = 2500
     sc = gen.gen_boxes(count=n, density=1.0 / 1000.0, seed=2)
     count, _ = _compare(Index64_3D, sc.system_min, sc.system_max,
                         sc.bounds_min, sc.bounds_max, sc.ids,
-                        out_factor * n)
+                        out_factor * n, min_depth, slots)
     assert (count > out_factor * n) == (out_factor == 1)
 
 
-@pytest.mark.parametrize("spec,min_depth", [(Index32_2D, 4), (Index64_2D, 0),
-                                            (Index64_2D, 12)])
-def test_2d_specs_min_depth(spec, min_depth):
-    """A raised min_depth makes the bigger boxes need more than two cells
-    per axis: the cell-overflow flag."""
+@pytest.mark.parametrize("spec,min_depth,slots", [
+    pytest.param(Index32_2D, 4, 2, id="spec0-4"),
+    pytest.param(Index64_2D, 0, 2, id="spec1-0"),
+    pytest.param(Index64_2D, 12, 2, id="spec2-12"),
+    pytest.param(Index64_2D, 0, 3, id="Index64_2D-0-slots3"),
+    pytest.param(Index64_2D, 12, 3, id="Index64_2D-12-slots3")])
+def test_2d_specs_min_depth(spec, min_depth, slots):
+    """A raised min_depth makes the boxes need more cells per axis than
+    the slots: the cell-overflow flag.  At three slots per axis they emit
+    three cells along each axis."""
     rng = np.random.default_rng(0)
     n = 1500
     smin, smax = np.zeros(2, np.float32), np.ones(2, np.float32)
     r = rng.uniform(0.004, 0.01, n).astype(np.float32)
     p = rng.uniform(0.05, 0.95, (n, 2)).astype(np.float32)
     _, ovf = _compare(spec, smin, smax, p - r[:, None], p + r[:, None],
-                      np.arange(n, dtype=np.uint32), 4 * n, min_depth)
+                      np.arange(n, dtype=np.uint32), slots ** 2 * n,
+                      min_depth, slots)
     assert ovf == (min_depth == 12)
 
 

@@ -33,6 +33,9 @@ def _runs(cap, count_frac, style, rng):
 @pytest.mark.parametrize("cap,count_frac,style", [
     (4096, 1.0, "random"), (5000, 0.7, "random"), (4096, 1.0, "dense"),
     (8192, 0.9, "sparse"), (4096, 0.0, "empty"), (1, 1.0, "dense"),
+    # several 4096-lane tiles: every run nonempty (but the last lane's),
+    # every run empty, and count = cap off a tile multiple
+    (16384, 1.0, "dense"), (16384, 1.0, "empty"), (12289, 1.0, "random"),
 ])
 def test_prep_runs_matches_jax(cap, count_frac, style):
     rng = np.random.default_rng(cap + int(count_frac * 10))
