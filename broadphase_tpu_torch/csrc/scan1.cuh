@@ -16,8 +16,8 @@
 // The scratch is n_tiles status words followed by the ticket.  It needs a
 // clean start on every call: the caller's C entry point clears it with
 // clear() (cudaMemsetAsync on the caller's stream) before the launch.
-// lookback() scans 32-bit values: compact.cu (kernel 5) scans fewer than
-// 2^31 kept lanes.
+// lookback() scans 32-bit values: compact.cu (kernel 5) and merge.cu
+// (kernel 6) each scan fewer than 2^31 kept lanes.
 //
 // lookback_wide() scans a (sum, count) pair of 62-bit values, for prep.cu
 // (kernel 3), whose run-length sum reaches about cap^2 / 2.  A tile's
@@ -28,8 +28,6 @@
 // prefix, so two equal flags are one state of the tile, and again no fence
 // is needed.  Its scratch is 2 * n_tiles words followed by the ticket
 // (wide::clear, wide::take_ticket).
-//
-// merge.cu (kernel 6) still uses the three-phase scan of scan.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

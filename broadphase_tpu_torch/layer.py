@@ -24,13 +24,13 @@ import numpy as np
 import torch
 
 from . import geom
-from .index import IndexSpec, PAD_KEY, depth_of, keys_to_numpy, tz_pack
+from .index import IndexSpec, PAD_KEY, keys_to_numpy
 from .ops.build import emit_build
 from .ops.compact import stream_compact
 from .ops.expand import expand_pairs
 from .ops.expand2 import expand_pairs_prepped
 from .ops.prep import prep_runs
-from .ops.search import descendant_run_ends
+from .ops.runends import scan_pass1
 
 PAD_ID = 0xFFFF_FFFF
 
@@ -216,22 +216,6 @@ def sort(spec: IndexSpec, state: LayerState) -> LayerState:
 # scan
 # ---------------------------------------------------------------------------
 
-def _alpha_meta(spec: IndexSpec, keys: torch.Tensor, dep: torch.Tensor,
-                aux: torch.Tensor) -> torch.Tensor:
-    """Per-entry a-side rule byte ``(alpha << dim) | aux`` (int32): alpha is
-    the shallowest ancestor depth the cell is aligned to on every axis
-    where it is not its object's block minimum."""
-    dim = spec.dim
-    tz = tz_pack(spec, keys)
-    mtz = None
-    for k in range(dim):
-        tz_k = (tz >> (5 * k)) & 31
-        tz_k = torch.where(((aux >> k) & 1) != 0, tz_k, 31)
-        mtz = tz_k if mtz is None else torch.minimum(mtz, tz_k)
-    alpha = (dep - mtz).clamp(0, 31)
-    return ((alpha << dim) | (aux & ((1 << dim) - 1))) & 0xFF
-
-
 def canonical_pairs(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort the valid (a, b) pairs, drop duplicates, compact to the front.
@@ -287,9 +271,10 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     """Pair expansion over a sorted tree (``broadphase_tpu.layer.scan_pairs``,
     its kernel path).
 
-    Pass 1 finds each element's descendant run (run-ends kernel), the prep
-    kernel turns the runs into prefix-summed entries, and the expansion
-    kernel writes one (later id, earlier id) emission per slot, keeping
+    Pass 1 (the run-ends kernel) finds each element's descendant run and
+    its two rule bytes straight from the sorted keys, the prep kernel turns
+    the runs into prefix-summed entries, and the expansion kernel writes
+    one (later id, earlier id) emission per slot, keeping
     only the canonical emission of each pair when every live id is below
     2^24 - 1.  ``emit_capacity`` (>= ``pair_capacity``) bounds the raw
     emissions; ``canonical=False`` returns the unique pairs in emission
@@ -314,10 +299,7 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
         return ScanResult(empty, empty.clone(),
                           torch.zeros((), dtype=torch.int64, device=dev),
                           extra_overflow)
-    dim = spec.dim
-    dep = depth_of(spec, keys)
-    e = descendant_run_ends(spec, keys, dep)
-    lane = torch.arange(cap, dtype=torch.int64, device=dev)
+    e, ameta, bmeta = scan_pass1(spec, keys, aux, rules=expand == "v3")
     if expand == "v2":
         # broadphase_tpu/layer.py:980-998: run lengths, their exclusive
         # prefix sum, and the expansion kernel with no rule
@@ -330,14 +312,11 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
         valid = (t < total) & (a != b)
         return _finish_pairs(a, b, valid, pair_capacity, emit_cap,
                              pair_overflow, extra_overflow, canonical)
+    lane = torch.arange(cap, dtype=torch.int64, device=dev)
     max_id = torch.where(lane < count, ids, 0).max()
-    aux_arr = aux if aux is not None else torch.zeros(cap, dtype=torch.int32,
-                                                      device=dev)
-    bmeta = ((dep << dim) | (aux_arr & ((1 << dim) - 1))) & 0xFF
-    ameta = _alpha_meta(spec, keys, dep, aux_arr)
     sv, ab, bid, bm, m, total, wrapped = prep_runs(e, ids, bmeta, count)
     a, b = expand_pairs_prepped(ids, ameta, sv, ab, bid, bm, m, total,
-                                emit_cap, max_id < _RULE_ID_BOUND, dim)
+                                emit_cap, max_id < _RULE_ID_BOUND, spec.dim)
     # dropped emissions and slots >= total are PAD on both sides
     valid = a != b
     return _finish_pairs(a, b, valid, pair_capacity, emit_cap,

@@ -33,10 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SIGNATURES = {
     "bpt_compact": "pp" + "pppp" + "pppp" + "iiii" + "ii" + "p" + "p",
     "bpt_build": "ppppp" + "ppp" + "iiiiiii" + "p",
-    "bpt_runends": "ppppp" + "ii" + "p",
+    "bpt_runends": "pppppp" + "iiiii" + "iii" + "i" + "p",
     "bpt_prep": "pppp" + "pppp" + "pp" + "i" + "p",
     "bpt_expand": "pppppp" + "ppp" + "pp" + "iii" + "p",
-    "bpt_merge": "ppppp" + "ppp" + "pppp" + "iii" + "p",
+    "bpt_merge": "ppppp" + "ppp" + "p" + "iii" + "p",
     "bpt_expand_v2": "ppppp" + "ii" + "p",
 }
 
@@ -120,7 +120,8 @@ def load() -> ctypes.CDLL:
                        for c in sig]
     lib.bpt_error_string.restype = ctypes.c_char_p
     lib.bpt_error_string.argtypes = [ctypes.c_int]
-    for name in ("bpt_scan_tile", "bpt_compact_tile", "bpt_prep_tile"):
+    for name in ("bpt_runends_tile", "bpt_compact_tile", "bpt_prep_tile",
+                 "bpt_merge_tile"):
         getattr(lib, name).restype = ctypes.c_int64
         getattr(lib, name).argtypes = []
     _lib = lib
@@ -139,11 +140,11 @@ def launch(name: str, *args) -> None:
                            f"{lib.bpt_error_string(err).decode()}")
 
 
-def scan_tiles(n: int) -> int:
-    """Number of tiles the shared device-wide scan (``scan.cuh``) cuts n
-    elements into; callers size its scratch with it."""
-    tile = load().bpt_scan_tile()
-    return max(1, -(-n // tile))
+def runends_tile() -> int:
+    """Lanes a block of the pass-1 kernel (``runends.cu``) takes; its
+    scratch is 32 per-level positions and one status word a tile, plus
+    the ticket."""
+    return load().bpt_runends_tile()
 
 
 def compact_tile() -> int:
@@ -157,6 +158,12 @@ def prep_tile() -> int:
     """Lanes a block of the single-pass prep kernel (``prep.cu``) takes;
     its scratch is two status words a tile plus the ticket."""
     return load().bpt_prep_tile()
+
+
+def merge_tile() -> int:
+    """Merged positions a block of the merge kernel (``merge.cu``) takes;
+    its scratch is one status word a tile plus the ticket."""
+    return load().bpt_merge_tile()
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -15,8 +15,8 @@ has its key, its ``meta >> 1`` and the tag.  The survivors, in merged
 order, come out compacted with ``PAD_KEY`` past the count.  The plain
 version is the global formulation of ``broadphase_tpu/update.py:243-272``:
 concatenate, stable lexicographic sort, shift-compare, compact.  The
-kernel ranks each element into the merged order by binary search; bound by
-device memory.
+kernel merges by merge path, one tile of merged positions a block, and
+compacts by decoupled look-back in the same pass; bound by device memory.
 """
 
 from __future__ import annotations
@@ -91,18 +91,14 @@ def merge_cancel_compact(tree_key: torch.Tensor, tree_meta: torch.Tensor,
                          device=dev).reshape(())
     _cuda.require_cuda("merge_cancel_compact", tree_key, tree_meta,
                        churn_key, churn_meta, cc)
-    merged = cap + nc
-    merged_key = torch.empty(merged, dtype=torch.int64, device=dev)
-    merged_meta = torch.empty_like(merged_key)
-    alive = torch.empty(merged, dtype=torch.uint8, device=dev)
     out_key = torch.empty(out_capacity, dtype=torch.int64, device=dev)
     out_meta = torch.empty_like(out_key)
     count = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = torch.empty(_cuda.scan_tiles(max(merged, out_capacity)),
-                          dtype=torch.int64, device=dev)
+    tiles = -(-max(cap + nc, out_capacity) // _cuda.merge_tile())
+    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
     _cuda.launch("bpt_merge", tree_key, tree_meta, churn_key, churn_meta, cc,
-                 merged_key, merged_meta, alive, out_key, out_meta, count,
-                 scratch, cap, nc, int(out_capacity))
+                 out_key, out_meta, count, scratch, cap, nc,
+                 int(out_capacity))
     merge_cancel_compact.launches += 1
     return ((out_key, out_meta), count,
             torch.zeros((), dtype=torch.bool, device=dev))

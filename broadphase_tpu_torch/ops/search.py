@@ -1,8 +1,8 @@
 """Descendant-run structure of a sorted tree (``broadphase_tpu/ops/search.py``
 :155-278 on torch tensors).
 
-:func:`descendant_run_ends` dispatches its per-depth suffix minimum to the
-run-ends kernel (``ops/runends.py``).  :func:`expand_runs` and
+:func:`descendant_run_ends` takes the run ends from pass 1 of the scan (the
+run-ends kernel, ``ops/runends.py``).  :func:`expand_runs` and
 :func:`segmented_broadcast` are the XLA-path formulations of the JAX
 package, kept as the reference the expansion kernel's plain version is
 written with.
@@ -14,28 +14,14 @@ from typing import Tuple
 
 import torch
 
-from ..index import IndexSpec, bit_length
-from .runends import run_ends
+from ..index import IndexSpec
+from .runends import scan_pass1
 
 
-def adjacent_lca_depth(spec: IndexSpec, keys: torch.Tensor) -> torch.Tensor:
-    """For each adjacent pair of a sorted key array, the depth of the two
-    cells' lowest common ancestor: the leading zeros of their XOR, counted
-    from the top of the ``key_bits`` field, over dim, clamped to
-    ``axis_bits``.  int32 (n,); slot n-1 holds the sentinel -1."""
-    x = (keys[:-1] ^ keys[1:]) & ((1 << spec.key_bits) - 1)
-    nlz = spec.key_bits - bit_length(x)
-    lca = torch.clamp(nlz // spec.dim, max=spec.axis_bits).to(torch.int32)
-    return torch.cat([lca, torch.full((1,), -1, dtype=torch.int32,
-                                      device=keys.device)])
-
-
-def descendant_run_ends(spec: IndexSpec, keys: torch.Tensor,
-                        depth: torch.Tensor) -> torch.Tensor:
+def descendant_run_ends(spec: IndexSpec, keys: torch.Tensor) -> torch.Tensor:
     """Exclusive end of every element's descendant-or-equal run over a
     sorted tree; pads (depth > axis_bits) get 0.  int32 (n,)."""
-    lca = adjacent_lca_depth(spec, keys)
-    return run_ends(lca, depth.to(torch.int32), spec.axis_bits + 1)
+    return scan_pass1(spec, keys, rules=False)[0]
 
 
 def expand_runs(starts: torch.Tensor, pair_capacity: int

@@ -1,8 +1,9 @@
 """On-card smoke test of broadphase_tpu_torch: builds the seven CUDA kernels,
-holds each against its plain PyTorch version, drives the build + scan step
-at 30k and 1M boxes against the C++ oracle, the v2 scan at 1M, and the
-temporal-coherence update path at 1M boxes and four churn fractions
-against a fresh build and the oracle.
+holds each against its plain PyTorch version (kernel 2, pass 1 of the scan,
+also against the run ends of the adjacent-LCA depths), drives the build +
+scan step at 30k and 1M boxes against the C++ oracle, the v2 scan at 1M,
+and the temporal-coherence update path at 1M boxes and four churn
+fractions against a fresh build and the oracle.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -42,7 +43,9 @@ from broadphase_tpu_torch.ops.expand2 import (expand_pairs_prepped,
 from broadphase_tpu_torch.ops.merge import (merge_cancel_compact,
                                             merge_cancel_compact_plain)
 from broadphase_tpu_torch.ops.prep import prep_runs, prep_runs_plain
-from broadphase_tpu_torch.ops.runends import run_ends, run_ends_plain
+from broadphase_tpu_torch.ops.runends import (adjacent_lca_depth,
+                                              alpha_meta, run_ends_plain,
+                                              scan_pass1, scan_pass1_plain)
 
 SPEC = Index64_3D
 KERNELS = {
@@ -52,9 +55,9 @@ KERNELS = {
     "emit_build": (emit_build, "broadphase_tpu_torch/csrc/build.cu",
                    "broadphase_tpu/ops/pallas_build.py:290", "step",
                    ("build_kernel",)),
-    "run_ends": (run_ends, "broadphase_tpu_torch/csrc/runends.cu",
+    "run_ends": (scan_pass1, "broadphase_tpu_torch/csrc/runends.cu",
                  "broadphase_tpu/ops/pallas_runends.py:103", "step",
-                 ("tile_first", "carry_kernel", "run_ends_kernel")),
+                 ("pass1_kernel", "Memset")),
     "prep_runs": (prep_runs, "broadphase_tpu_torch/csrc/prep.cu",
                   "broadphase_tpu/ops/pallas_prep.py:173", "step",
                   ("prep_onepass", "Memset")),
@@ -68,8 +71,7 @@ KERNELS = {
     "merge_cancel_compact": (merge_cancel_compact,
                              "broadphase_tpu_torch/csrc/merge.cu",
                              "broadphase_tpu/ops/pallas_merge.py:263",
-                             "frame", ("merge_rank", "merge_scatter",
-                                       "tile_sums")),
+                             "frame", ("merge_path", "Memset")),
     "expand_pairs": (expand_pairs, "broadphase_tpu_torch/csrc/expand.cu",
                      "broadphase_tpu/ops/pallas_expand.py:203", "scan_v2",
                      ("expand_v2",)),
@@ -87,15 +89,13 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 # device kernels by layer, matched on the kernel's name; the rest of the
 # device time is torch's elementwise and indexing glue
-LAYER_OF_KERNEL = (("build_kernel", "k1 build"), ("tile_first", "k2 run ends"),
-                   ("carry_kernel", "k2 run ends"),
-                   ("run_ends_kernel", "k2 run ends"),
+LAYER_OF_KERNEL = (("build_kernel", "k1 build"),
+                   ("pass1_kernel", "k2 pass 1 (run ends, rule bytes)"),
                    ("prep_onepass", "k3 prep"),
                    ("expand_partitioned", "k4 expand"),
                    ("compact_onepass", "k5 compact"),
-                   ("merge_rank", "k6 merge"), ("merge_scatter", "k6 merge"),
+                   ("merge_path", "k6 merge"),
                    ("expand_v2", "k7 expand v2"),
-                   ("tile_sums", "k6 scan phases"),
                    ("RadixSort", "torch.sort"), ("Memcpy", "copies"),
                    ("Memset", "copies"))
 
@@ -128,45 +128,53 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def device_ms_by_layer(run, reps: int = 5):
     """Device time per call of run() by layer (torch.profiler), in ms, and
-    the device operations (kernels, copies, fills) per call."""
+    the device operations (kernels, copies, fills) per call; a window that
+    shows no device events is profiled again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    by_layer, ops = {}, 0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        name = next((lab for key, lab in LAYER_OF_KERNEL if key in evt.key),
-                    "torch glue")
-        by_layer[name] = (by_layer.get(name, 0.0)
-                          + evt.self_device_time_total / reps / 1e3)
-        ops += evt.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        by_layer, ops = {}, 0
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            name = next((lab for key, lab in LAYER_OF_KERNEL
+                         if key in evt.key), "torch glue")
+            by_layer[name] = (by_layer.get(name, 0.0)
+                              + evt.self_device_time_total / reps / 1e3)
+            ops += evt.count
+        if ops:
+            break
     return by_layer, ops / reps
 
 
 def kernel_device_ms(fn, names=None, reps: int = 10) -> float:
     """Device time per call of fn() in ms (torch.profiler, summed over reps
     calls after one warm-up): the device work whose name holds one of
-    ``names``, or all of it when names is None.  Unlike cuda_ms it leaves
-    out the host's enqueue of the call's allocations and launches."""
+    ``names``, or all of it when names is None; a window that shows none
+    is profiled again, up to three times.  Unlike cuda_ms it leaves out
+    the host's enqueue of the call's allocations and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(evt.self_device_time_total for evt in prof.key_averages()
-             if evt.device_type == DeviceType.CUDA
-             and (names is None or any(k in evt.key for k in names)))
+    for _ in range(3):   # the profiler now and then returns no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                 if evt.device_type == DeviceType.CUDA
+                 and (names is None or any(k in evt.key for k in names)))
+        if us > 0:
+            break
     return us / reps / 1e3
 
 
@@ -236,15 +244,29 @@ def build_inputs(scene, dev):
             torch.as_tensor(ids.astype(np.int64), device=dev))
 
 
-def scan_inputs(state):
-    keys, ids, aux, count = state.keys, state.ids, state.aux, state.count
+def pass1_glue(keys, aux):
+    """The torch operations that pass 1 absorbed, as the step ran them
+    before it: the adjacent-LCA depths, the depth column and both rule
+    bytes (the plain version of pass 1 without its run-ends loop)."""
     dep = depth_of(SPEC, keys)
-    lca = search.adjacent_lca_depth(SPEC, keys)
+    lca = adjacent_lca_depth(SPEC, keys)
     bmeta = ((dep << SPEC.dim) | (aux & 7)) & 0xFF
-    ameta = layer._alpha_meta(SPEC, keys, dep, aux)
-    lane = torch.arange(ids.shape[0], device=ids.device)
-    rule = torch.where(lane < count, ids, 0).max() < layer._RULE_ID_BOUND
-    return dep, lca, bmeta, ameta, rule
+    return lca, dep, bmeta, alpha_meta(SPEC, keys, dep, aux)
+
+
+def compare_pass1(spec, keys, aux):
+    """Kernel 2 against its plain version, (e, ameta, bmeta) and e alone
+    without the rule bytes, and its e against run_ends_plain of the
+    adjacent-LCA depths.  Returns (max_abs_err, the kernel's columns)."""
+    got = scan_pass1(spec, keys, aux)
+    err = max_abs_err(got, scan_pass1_plain(spec, keys, aux))
+    e_only, no_a, no_b = scan_pass1(spec, keys, aux, rules=False)
+    check(no_a is None and no_b is None, "scan_pass1: rule bytes without "
+          "rules")
+    lca = adjacent_lca_depth(spec, keys)
+    want_e = run_ends_plain(lca, depth_of(spec, keys), spec.axis_bits + 1)
+    err = max(err, max_abs_err((got[0], e_only), (want_e, want_e)))
+    return err, got
 
 
 def compare_build(inputs, out_cap, spec=SPEC, min_depth=0, slots=2):
@@ -270,12 +292,13 @@ def compare_all(state, inputs, emit_cap):
     timed["emit_build"] = ((SPEC, *inputs, 0, cap), emit_build_plain,
                            nbytes(*inputs) + 20 * cap, None)
 
-    dep, lca, bmeta, ameta, rule = scan_inputs(state)
-    e = run_ends(lca, dep, SPEC.axis_bits + 1)
-    errs["run_ends"] = max_abs_err(
-        [e], [run_ends_plain(lca, dep, SPEC.axis_bits + 1)])
-    timed["run_ends"] = ((lca, dep, SPEC.axis_bits + 1), run_ends_plain,
-                         nbytes(lca, dep, e), None)
+    keys, aux = state.keys, state.aux
+    errs["run_ends"], (e, ameta, bmeta) = compare_pass1(SPEC, keys, aux)
+    timed["run_ends"] = ((SPEC, keys, aux), scan_pass1_plain,
+                         nbytes(keys, aux, e, ameta, bmeta), None)
+    lane = torch.arange(cap, device=keys.device)
+    rule = (torch.where(lane < state.count, state.ids, 0).max()
+            < layer._RULE_ID_BOUND)
 
     prepped = prep_runs(e, state.ids, bmeta, state.count)
     errs["prep_runs"] = max_abs_err(
@@ -305,7 +328,7 @@ def compare_all(state, inputs, emit_cap):
 
     # kernel 7 on the same tree: the v2 branch's starts and run
     starts, run, v2_total = layer.runs_v2(
-        search.descendant_run_ends(SPEC, state.keys, dep), state.count)
+        search.descendant_run_ends(SPEC, state.keys), state.count)
     vargs = (state.ids, starts, run, v2_total, emit_cap)
     got = expand_pairs(*vargs)
     errs["expand_pairs"] = max_abs_err(got, expand_pairs_plain(*vargs))
@@ -384,9 +407,87 @@ def adversarial(dev):
         for emit_cap in (64 * n + 1, 1000):  # the second is below total
             compare_all(state, inputs, emit_cap)
             n_cases += 5
-    return (n_cases + compact_adversarial(dev) + prep_adversarial(dev)
-            + build_adversarial(dev) + expand2_adversarial(dev)
-            + merge_adversarial(dev) + expand_adversarial(dev))
+    return (n_cases + pass1_adversarial(dev) + compact_adversarial(dev)
+            + prep_adversarial(dev) + build_adversarial(dev)
+            + expand2_adversarial(dev) + merge_adversarial(dev)
+            + expand_adversarial(dev))
+
+
+def synthetic_keys(spec, n, digits, pad_from, seed):
+    """n sorted keys whose top Morton digit takes the values ``digits`` in
+    equal shares (so lca = 0 only where it changes), with random lower
+    bits, random depth fields up to the field's top (depths past axis_bits
+    read as pads), some exact duplicates, and PAD_KEY from ``pad_from``."""
+    rng = np.random.default_rng(seed)
+    low = spec.key_bits - spec.dim
+    parts = np.array_split(np.arange(n), len(digits))
+    keys = np.concatenate([(np.int64(d) << np.int64(low))
+                           | rng.integers(0, 1 << low, len(part))
+                           for d, part in zip(digits, parts)])
+    keys = (keys & ~np.int64(spec.depth_mask)) | rng.integers(
+        0, spec.depth_mask + 1, n)
+    dup = rng.random(n) < 0.05
+    keys[1:][dup[1:]] = keys[:-1][dup[1:]]
+    keys = np.sort(keys)
+    keys[pad_from:] = PAD_KEY
+    return keys
+
+
+def pass1_adversarial(dev):
+    """Kernel 2 on what a single-pass look-back over the later tiles can
+    get wrong: n = 1 and 2 and one below, at and above a tile multiple,
+    1000+ tiles, the three specs, a depth-0 box, lca = 0 boundaries many
+    tiles apart (the look-back of levels 1-2 crosses them), pads starting
+    mid-tile, aux all zero and all set, and two calls in a row on one
+    stream (stale status words); each with and without the rule bytes."""
+    tile = _cuda.runends_tile()
+    rng = np.random.default_rng(4)
+    n_cases = 0
+
+    def run(spec, keys, aux):
+        nonlocal n_cases
+        keys = torch.as_tensor(keys, device=dev)
+        aux = torch.as_tensor(aux, dtype=torch.int32, device=dev)
+        compare_pass1(spec, keys, aux)
+        n_cases += 1
+
+    for spec in (Index64_3D, Index64_2D, Index32_2D):
+        full = (1 << spec.dim) - 1
+        for n, digits, pad_from in (
+                (1, (0,), 1), (2, (0, 1), 2), (2, (1,), 1),
+                (3 * tile - 1, (0, 1), 2 * tile + 777),
+                (3 * tile, (2,), 3 * tile), (3 * tile + 1, (0, 3), tile + 1),
+                (1001 * tile + 5, (0, 1, 2, full), 1000 * tile + 2049)):
+            keys = synthetic_keys(spec, n, digits, pad_from, n_cases)
+            for aux in (np.zeros(n), np.full(n, full),
+                        rng.integers(0, full + 1, n)):
+                run(spec, keys, aux)
+        scene = with_box(bench_caps.bench_scene(spec.dim, 20_000, seed=13),
+                         0.0, 1.0, 1, 14)                   # a depth-0 box
+        state = layer.build(spec, *scene, out_capacity=5 * 20_000 + 3,
+                            device=dev)
+        compare_pass1(spec, state.keys, state.aux)
+        n_cases += 1
+    # two calls in a row on the stream: the second reuses the first's
+    # scratch, so a status word left over from the first would show
+    a = torch.as_tensor(synthetic_keys(Index64_3D, 9 * tile + 3, (0, 7),
+                                       9 * tile, 1), device=dev)
+    b = torch.as_tensor(synthetic_keys(Index64_3D, 9 * tile + 3, (1,),
+                                       5 * tile + 1, 2), device=dev)
+    aux = torch.zeros(9 * tile + 3, dtype=torch.int32, device=dev)
+    got_a, got_b = (scan_pass1(Index64_3D, k, aux) for k in (a, b))
+    for got, k in ((got_a, a), (got_b, b)):
+        max_abs_err(got, scan_pass1_plain(Index64_3D, k, aux))
+    # lengths the kernel refuses, checked without allocating them
+    small = torch.zeros(8, dtype=torch.int64, device=dev)
+    try:
+        _cuda.launch("bpt_runends", small, None, small, small, small, small,
+                     2 ** 31 - 5, 3, 62, 19, 5, 1, 2, 4, 1)
+    except RuntimeError:
+        pass
+    else:
+        raise SmokeFailure("kernel 2 took n >= 2^31 - tile")
+    return n_cases + 3
 
 
 def compact_adversarial(dev):
@@ -599,9 +700,14 @@ def sorted_cols(key, meta, n, dev):
 def merge_adversarial(dev):
     """Kernel 6 on edge cases: empty churn, all tombstones, all inserts,
     churn outside the tree's key range, an empty tree, inserts equal to
-    live entries, churn_count short of the buffer, whole-tree churn."""
+    live entries, churn_count short of the buffer, whole-tree churn; and
+    on what merge path can get wrong: merged sizes one below, at and above
+    a tile multiple, all churn inside one tile's key range, a tombstone
+    that is the first element of a tile with its twin last in the tile
+    before, equal (key, meta) ties across a tile edge, and cap + nc >=
+    2^31 refused."""
     rng = np.random.default_rng(5)
-    n_cases = 0
+    n_cases = merge_path_adversarial(dev)
     for n in (5000, 70_001):
         tk = np.sort(rng.choice(1 << 40, n, replace=False) + (1 << 20))
         tm = rng.integers(0, 1 << 30, n) << 1
@@ -637,6 +743,50 @@ def merge_adversarial(dev):
                     key[:n].cpu(), torch.as_tensor(tk)),
                       "merge whole-tree churn: tree not rebuilt")
     return n_cases
+
+
+def merge_path_adversarial(dev):
+    tile = _cuda.merge_tile()
+    rng = np.random.default_rng(15)
+    n = 6 * tile + 100
+    tk = np.sort(rng.choice(1 << 40, n, replace=False) + (1 << 20))
+    tm = rng.integers(0, 1 << 30, n) << 1
+    cases = []
+    for d in (-1, 0, 1):     # cap + nc at a tile multiple, and beside it
+        ck = rng.choice(1 << 40, 500, replace=False) + (1 << 20)
+        cases.append((tk, tm, ck, np.arange(500) << 1, 500,
+                      8 * tile + d - 600, 600))
+    # all churn inside one tile's key range: tombstones of 300 entries and
+    # 900 inserts between their keys
+    lo, hi = tk[3 * tile], tk[3 * tile + 300]
+    ins = rng.integers(lo, hi, 900)
+    cases.append((tk, tm, np.concatenate([tk[3 * tile:3 * tile + 300], ins]),
+                  np.concatenate([tm[3 * tile:3 * tile + 300] | 1,
+                                  rng.integers(0, 1 << 30, 900) << 1]),
+                  1200, n + 1200, 1200))
+    # a tombstone at merged position k * tile, its twin (tree entry
+    # k * tile - 1) last in the tile before; and a churn insert equal to
+    # a tree entry in (key, meta) straddling the next tile edge (ties go
+    # tree-first)
+    for k in (1, 3):
+        i = k * tile - 1
+        ck = np.array([tk[i], tk[i + tile - 1]])
+        cm = np.array([tm[i] | 1, tm[i + tile - 1]])
+        cases.append((tk, tm, ck, cm, 2, n, 2))
+    for ak, am, ck, cm, cc, cap, nc in cases:
+        args = (*sorted_cols(ak, am, cap, dev), *sorted_cols(ck, cm, nc, dev),
+                torch.tensor(cc, device=dev), cap)
+        compare_merge(args)
+    # cap + nc >= 2^31 is refused, checked without allocating it
+    small = torch.zeros(8, dtype=torch.int64, device=dev)
+    try:
+        _cuda.launch("bpt_merge", small, small, small, small, small[0],
+                     small, small, small[0], small, 2 ** 31 - 5, 5, 8)
+    except RuntimeError:
+        pass
+    else:
+        raise SmokeFailure("kernel 6 took cap + nc >= 2^31")
+    return len(cases) + 1
 
 
 def expand_adversarial(dev):
@@ -943,10 +1093,19 @@ def main() -> int:
     state_big = layer.build(SPEC, *scene_big, out_capacity=tree_cap,
                             device=dev)
     errs, timed = compare_all(state_big, inputs, emit_cap)
+    glue, glue_ops = device_ms_by_layer(
+        lambda: pass1_glue(state_big.keys, state_big.aux))
+    print(f"pass-1 glue at 1M (the torch operations kernel 2 absorbed, run "
+          f"as the step ran them before): device {sum(glue.values()):.3f} "
+          f"ms, {glue_ops:.0f} device operations (5 profiled calls)")
     n_cases = adversarial(dev)
     print(f"adversarial: {n_cases} kernel cases exact (empty, one element, "
           f"ragged sizes, depth-0 and shallow boxes, outside boxes, "
           f"undersized tree, total > emit_cap, ids either side of 2^24-1; "
+          f"pass 1: n = 1 and 2, n around a tile multiple, 1000+ tiles, the "
+          f"three specs, a depth-0 box, lca = 0 boundaries many tiles apart,"
+          f" pads from mid-tile, aux all zero, all set and random, two calls"
+          f" in a row, rule bytes on and off, n >= 2^31 - tile refused; "
           f"compaction: 8k+ tiles, tiles alternating all and none kept, "
           f"one kept lane in the last tile, n one below, at and above a "
           f"tile multiple, 1, 3 and 4 columns with distinct fills, two "
@@ -963,7 +1122,11 @@ def main() -> int:
           f"side of 2^24-1; "
           f"merge: empty churn, all tombstones, all inserts, churn outside "
           f"the tree's keys, empty tree, inserts equal to live entries, "
-          f"short churn_count, whole-tree churn; v2 expansion: a run "
+          f"short churn_count, whole-tree churn, merged sizes around a tile"
+          f" multiple, all churn in one tile's key range, a tombstone first "
+          f"in a tile with its twin last in the one before, equal (key, "
+          f"meta) ties across a tile edge, cap + nc >= 2^31 refused; v2 "
+          f"expansion: a run "
           f"longer than any block, all runs empty, total mid-buffer, "
           f"total > pair capacity, empty tree)")
 

@@ -19,9 +19,10 @@ from broadphase_tpu.ops import search as jsearch
 from broadphase_tpu.ops.pallas_expand2 import expand_pairs_prepped as jexpand
 from broadphase_tpu.ops.pallas_prep import prep_runs as jprep
 from broadphase_tpu_torch import Index64_3D as TSPEC
-from broadphase_tpu_torch import layer as tlayer
+from broadphase_tpu_torch import index as tidx
 from broadphase_tpu_torch.ops import expand2 as texpand
 from broadphase_tpu_torch.ops import prep as tprep
+from broadphase_tpu_torch.ops import runends as truns
 from broadphase_tpu_torch.ops import search as tsearch
 
 from test_layer import random_scene
@@ -91,10 +92,10 @@ def test_expand_matches_jax_kernel_and_xla(rule, slack):
     tkeys = jax_to_torch_keys(SPEC, TSPEC, keys)
     tids = torch.as_tensor(np.asarray(ids).astype(np.int64))
     taux = torch.as_tensor(np.asarray(aux).astype(np.int32))
-    tdep = tlayer.depth_of(TSPEC, tkeys)
-    tameta = tlayer._alpha_meta(TSPEC, tkeys, tdep, taux)
+    tdep = tidx.depth_of(TSPEC, tkeys)
+    tameta = truns.alpha_meta(TSPEC, tkeys, tdep, taux)
     np.testing.assert_array_equal(tameta.numpy(), np.asarray(ameta))
-    te = tsearch.descendant_run_ends(TSPEC, tkeys, tdep)
+    te = tsearch.descendant_run_ends(TSPEC, tkeys)
     tb8 = ((tdep << 3) | (taux & 7)) & 0xFF
     prepped = tprep.prep_runs(te, tids, tb8, int(count))
     assert int(prepped[5]) == int(total)

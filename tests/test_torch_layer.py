@@ -215,7 +215,8 @@ def _meta_args(name):
         "emit_build": (build.emit_build, (tidx.Index64_3D, z((4, 3), i64),
                                           z((4, 3), i64),
                                           z(4, torch.bool), z(4, i64), 0, 32)),
-        "run_ends": (runends.run_ends, (z(4, i32), z(4, i32), 20)),
+        "run_ends": (runends.scan_pass1, (tidx.Index64_3D, z(4, i64),
+                                          z(4, i32))),
         "prep_runs": (prep.prep_runs, (z(4, i32), z(4, i64), z(4, i32),
                                        z((), i64))),
         "expand_pairs_prepped": (expand2.expand_pairs_prepped,

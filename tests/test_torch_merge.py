@@ -94,12 +94,15 @@ def _sorted_cols(key, meta, n):
 
 
 @pytest.mark.parametrize("case", ["whole_tree", "equal_insert", "empty_tree",
-                                  "outside_keys", "churn_count_short"])
+                                  "outside_keys", "churn_count_short",
+                                  "twin_at_tile_edge", "equal_ties"])
 def test_plain_matches_numpy_reference(case):
     """Whole-tree churn (every entry tombstoned and reinserted, which no
     TPU churn window holds), an insert equal to a live tree entry, an empty
-    tree, churn below and above every tree key, and pads inside the churn
-    buffer's live length."""
+    tree, churn below and above every tree key, pads inside the churn
+    buffer's live length, a tombstone at merged position 2048 (the first of
+    the kernel's second tile) with its twin last in the first, and churn
+    inserts equal in (key, meta) to tree entries and to each other."""
     rng = np.random.default_rng(11)
     n = 3000
     tk = np.sort(rng.choice(1 << 40, n, replace=False) + (1 << 20))
@@ -121,6 +124,12 @@ def test_plain_matches_numpy_reference(case):
     elif case == "outside_keys":
         ck = np.concatenate([np.arange(300), (1 << 41) + np.arange(300)])
         cm = np.arange(600) << 1
+    elif case == "twin_at_tile_edge":
+        ck, cm = tk[2047:2048], tm[2047:2048] | 1
+    elif case == "equal_ties":
+        pick = rng.choice(n, 300, replace=False)
+        ck = np.concatenate([tk[pick], tk[pick[:100]]])
+        cm = np.concatenate([tm[pick], tm[pick[:100]]])
     else:
         ck, cm = tk[:100], tm[:100] | 1
         churn_count = 140                              # 40 pads counted live
@@ -135,6 +144,10 @@ def test_plain_matches_numpy_reference(case):
     assert int(cnt) == want_cnt
     np.testing.assert_array_equal(key.numpy(), want_k)
     np.testing.assert_array_equal(meta.numpy(), want_m)
+    if case == "twin_at_tile_edge":
+        assert want_cnt == n - 1 and tk[2047] not in key.numpy()
+    if case == "equal_ties":
+        assert want_cnt == n + 400
     if case == "whole_tree":
         assert want_cnt == n
         np.testing.assert_array_equal(key.numpy()[:n], tk)
