@@ -17,7 +17,7 @@ import torch
 
 from .index import IndexSpec, key_from_columns, key_to_columns
 from .layer import LayerState
-from .update import TrackedScene
+from .update import TrackedScene, tree_aux_from_signature
 
 
 def layer_state_from_jax(spec: IndexSpec, fields: Mapping[str, Any],
@@ -69,15 +69,23 @@ def tracked_scene_from_jax(spec: IndexSpec, fields: Mapping[str, Any],
     JAX ``TrackedScene``'s numpy fields: ``state`` is a mapping as
     :func:`layer_state_from_jax` takes, the other fields are arrays with
     the JAX field names (u32 ids and signatures, f32 bounds, bool
-    containment)."""
+    containment).
+
+    The port's scene also carries the tree's aux bits before the wide-id
+    mask, which a JAX scene does not hold (its ``wide_ids`` update zeroes
+    aux): they are recomputed from the tree's keys and ids and the
+    objects' signatures (``update.tree_aux_from_signature``), which is
+    what ``layer.build`` on the scene's bounds emits for them."""
     def arr(name):
         x = np.array(fields[name])
         if x.dtype == np.uint32:
             x = x.astype(np.int64)
         return torch.as_tensor(x, device=device)
 
-    return TrackedScene(layer_state_from_jax(spec, fields["state"], device),
-                        arr("ids"), *(arr(f) for f in _TRACKED_ARRAYS))
+    state = layer_state_from_jax(spec, fields["state"], device)
+    ids, sig_tmin = arr("ids"), arr("sig_tmin")
+    return TrackedScene(state, ids, *(arr(f) for f in _TRACKED_ARRAYS),
+                        tree_aux_from_signature(spec, state, ids, sig_tmin))
 
 
 def tracked_scene_to_numpy(spec: IndexSpec, tracked: TrackedScene

@@ -3,14 +3,18 @@
 // Replaces broadphase_tpu/ops/pallas_build.py::emit_build.  Each object
 // runs geom.depth_for_bounds -> truncate_to_depth -> per-axis spans and
 // steps -> Morton spreads -> up to A^dim cell keys with their block-offset
-// aux bits, exactly in u32 arithmetic as the JAX code does.  Valid cells of
-// contained objects are appended at a block's base on one global cursor,
-// so the emission order is not deterministic; build sorts the full
-// (key, id, aux) tuple right after, which makes the tree deterministic.
-// Writes stop at out_cap, but the cursor counts every valid cell.
+// aux bits, exactly in u32 arithmetic as the JAX code does.  The valid
+// cells of contained objects are written in object-major, x-fastest order,
+// the plain version's order slot for slot; writes stop at out_cap, so an
+// overflowing build keeps the same prefix as the JAX package, and the
+// count takes every valid cell.
 //
-// One block takes 256 objects:
+// One block takes a tile of 256 objects, in one pass by decoupled
+// look-back (scan1.cuh, the wide variant: the cell count of a large A may
+// pass 2^32):
 //
+//  - its tile index comes from the ticket, so a block only waits on tiles
+//    whose blocks are already running;
 //  - it loads their (dim) bounds, contained bytes and ids as contiguous
 //    runs into shared memory, and each thread then reads its own object;
 //  - each axis has only A distinct cell coordinates, tmin + a * step, so a
@@ -19,19 +23,28 @@
 //    the bits; a cell's Morton code is the OR of its axes' codes;
 //  - A is a template parameter: 2, LayerBuilder's default, unrolls the
 //    cell walk with no division; one more instantiation takes any A;
-//  - a block scan of the objects' cell counts and one atomicAdd on the
-//    cursor place the block's cells; they are staged in shared memory in
-//    that order and written as one run with coalesced stores (keys, ids
-//    looked up from the staged object, aux), 2048 cells at a time: all of
-//    them at once for A = 2 in 2D or 3D;
+//  - a block scan of the objects' cell counts gives each object its place
+//    in the tile, and warp 0 looks back for the tile's base: the cells of
+//    the tiles before it.  The block that takes the last ticket writes the
+//    count.  The cells are staged in shared memory in object order and
+//    written as one run with coalesced stores (keys, ids looked up from
+//    the staged object, aux), 2048 cells at a time: all of them at once
+//    for A = 2 in 2D or 3D;
 //  - the cell-overflow flag takes one atomic a block.
+//
+// The entry point clears the status words and the ticket with one
+// cudaMemsetAsync (16 bytes a tile).
 //
 // Bound on the H100: device memory.  It reads 2 * dim * 8 + 9 bytes per
 // object and writes 20 bytes per emitted cell; the integer work (2 * dim
 // spreads of 5 stages an object) is small beside that.
 #include <cuda_runtime.h>
 
+#include "scan1.cuh"
+
 namespace {
+
+namespace wide = bpt::onepass::wide;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -57,7 +70,9 @@ struct BuildArgs {
   long long* out_keys;
   long long* out_ids;
   int* out_aux;
-  unsigned long long* stats;  // [0] cell cursor, [1] cell overflow flag
+  unsigned long long* stats;  // [0] cell count, [1] cell overflow flag
+  unsigned long long* scratch;  // look-back status words, then the ticket
+  int n_tiles;
 };
 
 __device__ __forceinline__ unsigned truncate_to_depth(unsigned x,
@@ -115,10 +130,11 @@ build_kernel(BuildArgs p) {
   __shared__ long long s_ids[kThreads];
   __shared__ long long stage_key[kStageCells];
   __shared__ unsigned short stage_tag[kStageCells];  // object << 8 | aux
-  __shared__ unsigned long long s_base;
+  __shared__ long long s_base;
   const int A = A_T > 0 ? A_T : p.A;
   const int t = threadIdx.x;
-  const long long obj0 = (long long)blockIdx.x * kThreads;
+  const int tile = wide::take_ticket(p.scratch, p.n_tiles);  // syncs
+  const long long obj0 = (long long)tile * kThreads;
   const int nb = (int)min(p.n - obj0, (long long)kThreads);
   for (int q = t; q < nb * DIM; q += kThreads) {
     s_lo[q] = p.lmin[obj0 * DIM + q];
@@ -178,10 +194,16 @@ build_kernel(BuildArgs p) {
 
   int block_cells;
   const int off = block_exclusive_sum(cells, &block_cells);
-  if (t == 0 && block_cells > 0)
-    s_base = atomicAdd(&p.stats[0], (unsigned long long)block_cells);
+  if (t < 32) {  // warp 0: the tile's base, from the tiles before it
+    const wide::Pair x = wide::lookback(p.scratch, tile, {block_cells, 0});
+    if (t == 0) {
+      s_base = x.sum;
+      if (tile == p.n_tiles - 1)
+        p.stats[0] = (unsigned long long)(x.sum + block_cells);
+    }
+  }
   if (__syncthreads_or(ovf) && t == 0) atomicOr(&p.stats[1], 1ull);
-  const long long base = (long long)s_base;
+  const long long base = s_base;
 
   for (int r0 = 0; r0 < block_cells; r0 += kStageCells) {
     // this thread's cells with block index in [r0, r0 + kStageCells)
@@ -274,27 +296,34 @@ void launch_dim(const BuildArgs& p, unsigned blocks, cudaStream_t s) {
 
 extern "C" int bpt_build(const void* lmin, const void* lmax,
                          const void* contained, const void* ids, void* stats,
-                         void* out_keys, void* out_ids, void* out_aux,
-                         long long n, long long dim, long long axis_bits,
-                         long long depth_bits, long long slots_per_axis,
-                         long long min_depth, long long out_cap,
-                         void* stream) {
+                         void* scratch, void* out_keys, void* out_ids,
+                         void* out_aux, long long n, long long dim,
+                         long long axis_bits, long long depth_bits,
+                         long long slots_per_axis, long long min_depth,
+                         long long out_cap, void* stream) {
+  const long long tiles = (n + kThreads - 1) / kThreads;
   BuildArgs p{(const long long*)lmin, (const long long*)lmax,
               (const unsigned char*)contained, (const long long*)ids, n,
               (int)axis_bits, (int)depth_bits, (int)slots_per_axis,
               (unsigned)min_depth, {}, out_cap,
               (long long*)out_keys, (long long*)out_ids, (int*)out_aux,
-              (unsigned long long*)stats};
-  if (dim < 2 || dim > 3 || slots_per_axis < 1 ||
+              (unsigned long long*)stats, (unsigned long long*)scratch,
+              (int)tiles};
+  if (dim < 2 || dim > 3 || slots_per_axis < 1 || tiles >= (1LL << 31) ||
       !spread_stages((int)axis_bits, (int)dim, &p.spread))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
     cudaStream_t s = (cudaStream_t)stream;
+    const cudaError_t err = wide::clear(p.scratch, tiles, s);
+    if (err != cudaSuccess) return (int)err;
     if (dim == 2)
-      launch_dim<2>(p, blocks, s);
+      launch_dim<2>(p, (unsigned)tiles, s);
     else
-      launch_dim<3>(p, blocks, s);
+      launch_dim<3>(p, (unsigned)tiles, s);
   }
   return (int)cudaGetLastError();
 }
+
+// Objects a block of the kernel takes; the wrapper sizes the scratch with
+// it (two status words a tile, then the ticket).
+extern "C" long long bpt_build_tile() { return kThreads; }

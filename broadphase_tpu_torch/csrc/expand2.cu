@@ -1,8 +1,10 @@
-// Kernel 4: pair expansion from the prepped nonempty runs, with the
-// emit-once rule.
+// Kernels 4 and 7: pair expansion from the prepped nonempty runs, with the
+// emit-once rule (kernel 4) and without it (kernel 7, the v2 expansion).
 //
-// Replaces broadphase_tpu/ops/pallas_expand2.py::expand_pairs_prepped.  For
-// each slot t < total, in run k (the last entry with sv[k] <= t):
+// Kernel 4 replaces broadphase_tpu/ops/pallas_expand2.py::
+// expand_pairs_prepped, kernel 7 broadphase_tpu/ops/pallas_expand.py::
+// expand_pairs.  For each slot t < total, in run k (the last entry with
+// sv[k] <= t):
 //   a = ids[t + ab[k]]   (the later, descendant-side element)
 //   b = bid[k]           (the earlier, ancestor-side element)
 // With the rule on, the emission is kept iff layer._emit_once_keep holds
@@ -10,33 +12,40 @@
 // t >= total write PAD on both sides.  The output equals the TPU kernel's
 // slot for slot.  Live starts sv[0, m) strictly increase from sv[0] = 0.
 //
+// The v2 expansion is this with the rule switched off: its run j starts
+// at starts[j] and writes a = ids[j + 1 + t - starts[j]], b = ids[j], and
+// prep.cu's entries for the same runs are sv = starts[j],
+// ab = j + 1 - starts[j], bid = ids[j].  So one kernel template serves
+// both: kRule = false reads no ameta and no bmeta, and stages 16 bytes a
+// run instead of 20.
+//
 // A load-balanced search, the CUDA form of the TPU kernel's covering run
 // c0 per tile.  Each block owns kT = 1024 consecutive slots:
 //  - warps 0 and 1 find the first and the last run its live slots touch,
 //    each by one 32-ary search of sv in device memory: 32 probes a round,
 //    5 dependent rounds at 2M runs against 21 for a binary search;
 //  - since live starts strictly increase, at most kT runs touch the
-//    block.  It copies their ab, bid and bmeta into shared memory in one
+//    block.  It copies their ab, bid (and bmeta) into shared memory in one
 //    coalesced read and marks each run's local index at its start slot;
 //  - an inclusive max-scan over the kT marks (a forward fill) gives every
 //    slot its run: one shared-memory read a slot, no search a slot;
 //  - thread i takes slots t0 + i + 256 r, so neighbouring lanes take
-//    neighbouring slots: within a run the a-side gathers of ids and ameta
-//    are consecutive, and the a and b stores are coalesced;
+//    neighbouring slots: within a run the a-side gathers of ids (and
+//    ameta) are consecutive, and the a and b stores are coalesced;
 //  - slots past total only store PAD; a block wholly past it searches
 //    nothing.
 // kT = 1024 keeps shared memory at 24 KB (8 + 8 + 4 bytes of run and 4 of
-// mark a slot), under the 48 KB static limit, so 8 blocks fit on an SM and
-// their searches overlap one another's stores.  kT = 2048 would halve the
-// searches a slot but need the dynamic shared-memory attribute and halve
-// the resident blocks.  The old design ran a 21-step binary search in
-// device memory for every slot and gathered ab, bid and bmeta per slot.
+// mark a slot; 20 KB without the rule), under the 48 KB static limit, so
+// 8 blocks fit on an SM and their searches overlap one another's stores.
+// kT = 2048 would halve the searches a slot but need the dynamic
+// shared-memory attribute and halve the resident blocks.
 //
 // Bound on the H100: device memory.  It writes 16 bytes a slot and reads
-// the live tree's ids and ameta (12 bytes an element) and the runs' sv,
-// ab, bid and bmeta (28 bytes a run).  Neighbouring runs overlap on the
-// a-side, whose 44 MB at 1M objects mostly stays in the 50 MB L2; the
-// streaming stores (st.global.cs) keep the outputs from evicting it.
+// the live tree's ids (and ameta: 8 or 12 bytes an element) and the runs'
+// sv, ab, bid (and bmeta: 24 or 28 bytes a run).  Neighbouring runs
+// overlap on the a-side, whose 30-44 MB at 1M objects mostly stays in the
+// 50 MB L2; the streaming stores (st.global.cs) keep the outputs from
+// evicting it.
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,6 +76,7 @@ __device__ long long warp_upper_bound(const long long* sv, long long m,
   return lo + __popc(__ballot_sync(kFull, le));
 }
 
+template <bool kRule>
 __global__ void __launch_bounds__(kThreads)
 expand_partitioned_kernel(const long long* ids, const int* ameta,
                           const long long* sv, const long long* ab,
@@ -76,7 +86,7 @@ expand_partitioned_kernel(const long long* ids, const int* ameta,
                           long long P, int dim, long long* a_out,
                           long long* b_out) {
   __shared__ long long s_ab[kT], s_bid[kT];
-  __shared__ int s_bm[kT];
+  __shared__ int s_bm[kRule ? kT : 1];
   __shared__ __align__(16) int s_run[kT];
   __shared__ long long s_k[2];
   __shared__ int s_part[kWarps];
@@ -114,7 +124,7 @@ expand_partitioned_kernel(const long long* ids, const int* ameta,
     const long long k = k0 + i;
     s_ab[i] = ab[k];
     s_bid[i] = bid[k];
-    s_bm[i] = bmeta[k];
+    if (kRule) s_bm[i] = bmeta[k];
     const long long s = sv[k] - t0;
     if (i > 0 && s > 0 && s < kT) s_run[s] = i;
   }
@@ -141,7 +151,7 @@ expand_partitioned_kernel(const long long* ids, const int* ameta,
                                   max(q.z, pre), max(q.w, pre));
   __syncthreads();
 
-  const bool rule = *rule_p != 0;
+  const bool rule = kRule && *rule_p != 0;
   const int emask = (1 << dim) - 1;
   long long idx[kSlotsPerThread], a[kSlotsPerThread], b[kSlotsPerThread];
   int run[kSlotsPerThread];
@@ -174,6 +184,7 @@ expand_partitioned_kernel(const long long* ids, const int* ameta,
 
 }  // namespace
 
+// Kernel 4: the rule byte columns, and the rule flag on the card.
 extern "C" int bpt_expand(const void* ids, const void* ameta, const void* sv,
                           const void* ab, const void* bid, const void* bmeta,
                           const void* m, const void* total, const void* rule,
@@ -181,13 +192,30 @@ extern "C" int bpt_expand(const void* ids, const void* ameta, const void* sv,
                           long long dim, void* stream) {
   if (P > 0) {
     const long long blocks = (P + kT - 1) / kT;
-    expand_partitioned_kernel<<<(unsigned)blocks, kThreads, 0,
-                                (cudaStream_t)stream>>>(
+    expand_partitioned_kernel<true><<<(unsigned)blocks, kThreads, 0,
+                                      (cudaStream_t)stream>>>(
         (const long long*)ids, (const int*)ameta, (const long long*)sv,
         (const long long*)ab, (const long long*)bid, (const int*)bmeta,
         (const long long*)m, (const long long*)total,
         (const unsigned char*)rule, cap, P, (int)dim, (long long*)a_out,
         (long long*)b_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel 7: the same entries with no rule.
+extern "C" int bpt_expand_v2(const void* ids, const void* sv, const void* ab,
+                             const void* bid, const void* m,
+                             const void* total, void* a_out, void* b_out,
+                             long long cap, long long P, void* stream) {
+  if (P > 0) {
+    const long long blocks = (P + kT - 1) / kT;
+    expand_partitioned_kernel<false><<<(unsigned)blocks, kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const long long*)ids, nullptr, (const long long*)sv,
+        (const long long*)ab, (const long long*)bid, nullptr,
+        (const long long*)m, (const long long*)total, nullptr, cap, P, 0,
+        (long long*)a_out, (long long*)b_out);
   }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@
 //   bmeta[k] = meta[j]   (the b-side rule byte (depth << dim) | aux).
 // Entries k >= m hold sv = 0x7FFF_FFFF, ab = 0, bid = PAD, bmeta = 0.
 // stats receives m, total and wrapped (total >= 2^31, where the JAX
-// package's int32 prefix sum wraps).
+// package's int32 prefix sum wraps).  The v2 scan's expansion has no rule
+// and passes no meta: the kMeta = false instantiation neither reads meta
+// nor writes bmeta.
 //
 // One pass over the data, by decoupled look-back (scan1.cuh, the wide
 // variant: the run sums need 64 bits):
@@ -59,6 +61,7 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 }
 
 // four blocks an SM: at most 64 registers a thread
+template <bool kMeta>
 __global__ void __launch_bounds__(kThreads, 4)
 prep_onepass_kernel(const int* e, const long long* ids, const int* meta,
                     const long long* count, long long n, long long* sv,
@@ -83,7 +86,7 @@ prep_onepass_kernel(const int* e, const long long* ids, const int* meta,
   // ids: 32 KB of the tile, 128 bytes a thread; meta: 16 KB, 128 threads
   const int t = threadIdx.x;
   if (16 * t < size) prefetch_l2(ids + base + 16 * t);
-  if (32 * t < size) prefetch_l2(meta + base + 32 * t);
+  if (kMeta && 32 * t < size) prefetch_l2(meta + base + 32 * t);
 
   // run lengths of tile lanes 512 warp + 32 r + lane
   const long long row0 = base + 32 * kRows * warp + lane;
@@ -178,7 +181,7 @@ prep_onepass_kernel(const int* e, const long long* ids, const int* meta,
     sv[out + i] = s;
     ab[out + i] = j + 1 - s;
     bid[out + i] = ids[j];
-    bmeta[out + i] = meta[j];
+    if (kMeta) bmeta[out + i] = meta[j];
   }
   const int dropped = size - n_kept;
   const long long fill = (n - base - size) + out + n_kept;
@@ -186,7 +189,7 @@ prep_onepass_kernel(const int* e, const long long* ids, const int* meta,
     sv[fill + i] = kHuge;
     ab[fill + i] = 0;
     bid[fill + i] = kPadId;
-    bmeta[fill + i] = 0;
+    if (kMeta) bmeta[fill + i] = 0;
   }
 }
 
@@ -202,7 +205,9 @@ extern "C" int bpt_prep(const void* e, const void* ids, const void* meta,
   unsigned long long* words = (unsigned long long*)scratch;
   const cudaError_t err = wide::clear(words, tiles, s);
   if (err != cudaSuccess) return (int)err;
-  prep_onepass_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
+  const auto kernel = meta != nullptr ? &prep_onepass_kernel<true>
+                                      : &prep_onepass_kernel<false>;
+  kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
       (const int*)e, (const long long*)ids, (const int*)meta,
       (const long long*)count, n, (long long*)sv, (long long*)ab,
       (long long*)bid, (int*)bmeta, (long long*)stats, words, (int)tiles);

@@ -27,7 +27,7 @@ from . import geom
 from .index import IndexSpec, PAD_KEY, keys_to_numpy
 from .ops.build import emit_build
 from .ops.compact import stream_compact
-from .ops.expand import expand_pairs
+from .ops.expand import expand_pairs_entries
 from .ops.expand2 import expand_pairs_prepped
 from .ops.prep import prep_runs
 from .ops.runends import scan_pass1
@@ -154,6 +154,16 @@ def build(spec: IndexSpec, system_min, system_max, bounds_min, bounds_max,
     cut or an object needed more than ``slots_per_axis`` cells on some
     axis.  Objects not inside the system box are dropped and counted in
     ``invalid_count``."""
+    return _build(spec, system_min, system_max, bounds_min, bounds_max,
+                  ids, slots_per_axis, min_depth, out_capacity, device)[0]
+
+
+def _build(spec: IndexSpec, system_min, system_max, bounds_min, bounds_max,
+           ids, slots_per_axis: int = 2, min_depth: int = 0,
+           out_capacity: Optional[int] = None, device=None):
+    """:func:`build`, and the emitted aux bits with the tree's order of
+    them (``aux[perm]`` is the tree's aux before :func:`mask_aux`, which
+    ``update`` carries from frame to frame)."""
     dev = resolve_device(device, bounds_min, bounds_max, ids)
 
     def f32(x):
@@ -173,8 +183,8 @@ def build(spec: IndexSpec, system_min, system_max, bounds_min, bounds_max,
     keys, fids, faux, count, cell_ovf = emit_build(
         spec, lmin, lmax, contained, ids, int(min_depth), out_cap,
         slots_per_axis)
-    skeys, sids, saux = _sort_tree(spec, keys, fids, faux)
-    return LayerState(
+    skeys, sids, saux, perm = _sort_tree(spec, keys, fids, faux)
+    state = LayerState(
         keys=skeys,
         ids=sids,
         aux=saux,
@@ -184,30 +194,40 @@ def build(spec: IndexSpec, system_min, system_max, bounds_min, bounds_max,
         invalid_count=(~contained).sum(dtype=torch.int64),
         overflow=cell_ovf | (count > out_cap),
     )
+    return state, faux, perm
+
+
+def mask_aux(ids: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+    """The tree's aux column as the JAX package's packed tree sort leaves
+    it: 0 on pads, and 0 everywhere once a live id reaches 2^29 - 1 (the
+    emit-once rule then keeps every emission)."""
+    if ids.shape[0] == 0:
+        return aux
+    live = ids != PAD_ID
+    max_id = torch.where(live, ids, 0).max()
+    return torch.where(live & (max_id < _NARROW_ID_BOUND), aux, 0)
 
 
 def _sort_tree(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                aux: torch.Tensor):
     """Order the (key, id, aux) tuples as the JAX package's tree sort does:
-    two stable library sorts, by ``(id << dim) | aux`` and then by key.
-    When a live id reaches 2^29 - 1 the aux bits are dropped to zero (the
-    emit-once rule then keeps every emission)."""
+    two stable library sorts, by ``(id << dim) | aux`` and then by key,
+    with aux masked by :func:`mask_aux` first.  Returns the sorted (keys,
+    ids, masked aux) and the permutation that sorts them."""
     if ids.shape[0] == 0:
-        return keys, ids, aux
-    live = ids != PAD_ID
-    max_id = torch.where(live, ids, 0).max()
-    aux = torch.where(live & (max_id < _NARROW_ID_BOUND), aux, 0)
-    order = torch.sort(ids * (1 << spec.dim) + aux, stable=True).indices
+        return keys, ids, aux, torch.zeros_like(ids)
+    masked = mask_aux(ids, aux)
+    order = torch.sort(ids * (1 << spec.dim) + masked, stable=True).indices
     skeys, order2 = torch.sort(keys[order], stable=True)
     perm = order[order2]
-    return skeys, ids[perm], aux[perm]
+    return skeys, ids[perm], masked[perm], perm
 
 
 def sort(spec: IndexSpec, state: LayerState) -> LayerState:
     """Sort the tree; a no-op for a sorted state."""
     if bool(state.sorted):
         return state
-    keys, ids, aux = _sort_tree(spec, state.keys, state.ids, state.aux)
+    keys, ids, aux, _ = _sort_tree(spec, state.keys, state.ids, state.aux)
     return state._replace(keys=keys, ids=ids, aux=aux,
                           sorted=_host(True, torch.bool))
 
@@ -254,7 +274,9 @@ def runs_v2(e: torch.Tensor, count) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """(starts, run, total) of the v2 expansion from the run ends e:
     ``run[j] = max(min(e[j], count) - j - 1, 0)`` for j < count, its
-    exclusive prefix sum and its sum, int64."""
+    exclusive prefix sum and its sum, int64: the JAX package's v2 branch
+    in torch, which the prep kernel computes in :func:`scan_pairs`; kept
+    as the plain reference of the JAX-shaped ``ops.expand.expand_pairs``."""
     lane = torch.arange(e.shape[0], dtype=torch.int64, device=e.device)
     em = torch.minimum(e.to(torch.int64), count)
     run = torch.where(lane < count, (em - (lane + 1)).clamp(min=0), 0)
@@ -281,9 +303,10 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     order without the canonical sort.
 
     ``expand="v2"`` takes the JAX package's ``BROADPHASE_EXPAND=v2`` branch
-    instead: run lengths and their prefix sum in torch, then the v2
-    expansion kernel (``ops/expand.py``), which has no emit-once rule, so
-    duplicate emissions survive into ``canonical=False`` output.
+    instead: pass 1 finds the run ends alone, the prep kernel makes the
+    same entries without rule bytes, and the v2 expansion kernel
+    (``ops/expand.py``) expands them with no emit-once rule, so duplicate
+    emissions survive into ``canonical=False`` output.
     """
     if expand not in ("v2", "v3"):
         raise ValueError(f"expand must be 'v2' or 'v3', got {expand!r}")
@@ -300,23 +323,17 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                           torch.zeros((), dtype=torch.int64, device=dev),
                           extra_overflow)
     e, ameta, bmeta = scan_pass1(spec, keys, aux, rules=expand == "v3")
-    if expand == "v2":
-        # broadphase_tpu/layer.py:980-998: run lengths, their exclusive
-        # prefix sum, and the expansion kernel with no rule
-        starts, run, total = runs_v2(e, count)
-        # the JAX package's int32 prefix sum wraps exactly when
-        # total >= 2^31
-        pair_overflow = (total >= 2 ** 31) | (total > emit_cap)
-        a, b = expand_pairs(ids, starts, run, total, emit_cap)
-        t = torch.arange(emit_cap, dtype=torch.int64, device=dev)
-        valid = (t < total) & (a != b)
-        return _finish_pairs(a, b, valid, pair_capacity, emit_cap,
-                             pair_overflow, extra_overflow, canonical)
-    lane = torch.arange(cap, dtype=torch.int64, device=dev)
-    max_id = torch.where(lane < count, ids, 0).max()
     sv, ab, bid, bm, m, total, wrapped = prep_runs(e, ids, bmeta, count)
-    a, b = expand_pairs_prepped(ids, ameta, sv, ab, bid, bm, m, total,
-                                emit_cap, max_id < _RULE_ID_BOUND, spec.dim)
+    if expand == "v2":
+        # broadphase_tpu/layer.py:980-998: the same runs and prefix sum,
+        # expanded with no rule
+        a, b = expand_pairs_entries(ids, sv, ab, bid, m, total, emit_cap)
+    else:
+        lane = torch.arange(cap, dtype=torch.int64, device=dev)
+        max_id = torch.where(lane < count, ids, 0).max()
+        a, b = expand_pairs_prepped(ids, ameta, sv, ab, bid, bm, m, total,
+                                    emit_cap, max_id < _RULE_ID_BOUND,
+                                    spec.dim)
     # dropped emissions and slots >= total are PAD on both sides
     valid = a != b
     return _finish_pairs(a, b, valid, pair_capacity, emit_cap,

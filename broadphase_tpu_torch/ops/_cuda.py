@@ -32,12 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # pointer argument is a device pointer except the trailing stream handle.
 _SIGNATURES = {
     "bpt_compact": "pp" + "pppp" + "pppp" + "iiii" + "ii" + "p" + "p",
-    "bpt_build": "ppppp" + "ppp" + "iiiiiii" + "p",
+    "bpt_build": "ppppp" + "p" + "ppp" + "iiiiiii" + "p",
     "bpt_runends": "pppppp" + "iiiii" + "iii" + "i" + "p",
     "bpt_prep": "pppp" + "pppp" + "pp" + "i" + "p",
     "bpt_expand": "pppppp" + "ppp" + "pp" + "iii" + "p",
     "bpt_merge": "ppppp" + "ppp" + "p" + "iii" + "p",
-    "bpt_expand_v2": "ppppp" + "ii" + "p",
+    "bpt_expand_v2": "pppp" + "pp" + "pp" + "ii" + "p",
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -120,8 +120,8 @@ def load() -> ctypes.CDLL:
                        for c in sig]
     lib.bpt_error_string.restype = ctypes.c_char_p
     lib.bpt_error_string.argtypes = [ctypes.c_int]
-    for name in ("bpt_runends_tile", "bpt_compact_tile", "bpt_prep_tile",
-                 "bpt_merge_tile"):
+    for name in ("bpt_build_tile", "bpt_runends_tile", "bpt_compact_tile",
+                 "bpt_prep_tile", "bpt_merge_tile"):
         getattr(lib, name).restype = ctypes.c_int64
         getattr(lib, name).argtypes = []
     _lib = lib
@@ -138,6 +138,12 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "
                            f"{lib.bpt_error_string(err).decode()}")
+
+
+def build_tile() -> int:
+    """Objects a block of the cell-emission kernel (``build.cu``) takes;
+    its scratch is two status words a tile plus the ticket."""
+    return load().bpt_build_tile()
 
 
 def runends_tile() -> int:

@@ -4,7 +4,8 @@ Replaces ``broadphase_tpu/ops/pallas_build.py::emit_build``.  One thread per
 object computes its depth, truncation, spans and Morton-spread cell keys
 (each axis coordinate spread once, by constant stages); a block stages the
 valid cells of its contained objects in shared memory and writes them
-coalesced at a base taken from one atomic cursor.  Bound by device memory:
+coalesced at a base found by decoupled look-back (``csrc/scan1.cuh``), so
+the output is the plain version's, slot for slot.  Bound by device memory:
 ~57 bytes read per object and 20 bytes written per cell.  Quantization
 stays in torch ahead of the kernel (``geom.to_local``), as the JAX package
 keeps it in XLA.
@@ -60,9 +61,9 @@ def emit_build(spec: IndexSpec, lmin: torch.Tensor, lmax: torch.Tensor,
                contained: torch.Tensor, ids: torch.Tensor, min_depth: int,
                out_capacity: int, slots_per_axis: int = 2):
     """:func:`emit_build_plain` on CPU tensors; the CUDA kernel on CUDA
-    tensors.  On the card the emission order is not deterministic (the
-    caller sorts); the cells kept when count > out_capacity are then an
-    arbitrary subset, as the overflow flag says."""
+    tensors.  Both write the cells in object-major, x-fastest order, so
+    when count > out_capacity both keep the same prefix, as the JAX
+    package does."""
     if lmin.device.type == "cpu":
         return emit_build_plain(spec, lmin, lmax, contained, ids, min_depth,
                                 out_capacity, slots_per_axis)
@@ -81,9 +82,13 @@ def emit_build(spec: IndexSpec, lmin: torch.Tensor, lmax: torch.Tensor,
                          device=dev)
     aux = torch.zeros(out_capacity, dtype=torch.int32, device=dev)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    _cuda.launch("bpt_build", lmin, lmax, contained, ids, stats, keys,
-                 out_ids, aux, n, spec.dim, spec.axis_bits, spec.depth_bits,
-                 int(slots_per_axis), int(min_depth), int(out_capacity))
+    # two status words a tile, then the ticket; the entry point clears them
+    scratch = torch.empty(2 * -(-n // _cuda.build_tile()) + 1,
+                          dtype=torch.int64, device=dev)
+    _cuda.launch("bpt_build", lmin, lmax, contained, ids, stats, scratch,
+                 keys, out_ids, aux, n, spec.dim, spec.axis_bits,
+                 spec.depth_bits, int(slots_per_axis), int(min_depth),
+                 int(out_capacity))
     emit_build.launches += 1
     return keys, out_ids, aux, stats[0], stats[1] != 0
 

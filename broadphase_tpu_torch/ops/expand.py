@@ -1,4 +1,5 @@
-"""Kernel 7: the v2 pair expansion from run starts (``csrc/expand.cu``).
+"""Kernel 7: the v2 pair expansion (``csrc/expand2.cu``, kernel 4's
+template with the rule compiled out).
 
 Replaces ``broadphase_tpu/ops/pallas_expand.py::expand_pairs``, the
 expansion that the JAX scan takes under ``BROADPHASE_EXPAND=v2`` (here
@@ -9,9 +10,17 @@ among equal starts):
     a = ids[j + 1 + (t - starts[j])]     b = ids[j]
 
 and PAD on both sides for t >= total.  There is no emit-once rule: every
-emission of a pair survives to the canonical dedup.  The kernel gives one
-thread per slot and finds j by binary search over ``starts``; bound by
-device memory (16 bytes written per slot).
+emission of a pair survives to the canonical dedup.
+
+The kernel takes the nonempty runs as the prep kernel lays them out
+(``ops/prep.py``: sv = starts[j], ab = j + 1 - starts[j], bid = ids[j]),
+which makes the same pair ``a = ids[t + ab[k]]``, ``b = bid[k]`` slot for
+slot: :func:`expand_pairs_entries`, which the v2 scan calls.  It
+partitions the slots into blocks of 1024 and finds each block's runs by
+one search, as kernel 4 does; bound by device memory (16 bytes written
+per slot).  :func:`expand_pairs` keeps the JAX function's contract
+(``starts`` and ``run`` of every element); on the card it compacts the
+nonempty runs into entries with kernel 5 first.
 """
 
 from __future__ import annotations
@@ -19,6 +28,9 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .compact import stream_compact
+from .expand2 import expand_pairs_prepped_plain
+from .prep import HUGE
 from .search import expand_runs, segmented_broadcast
 
 PAD_ID = 0xFFFF_FFFF
@@ -44,11 +56,50 @@ def expand_pairs_plain(ids: torch.Tensor, starts: torch.Tensor,
     return torch.where(live, a, pad), torch.where(live, b, pad)
 
 
+def expand_pairs_entries_plain(ids, sv, ab, bid, m, total,
+                               pair_capacity: int):
+    """Kernel 4's plain version with the rule off: slot -> entry by
+    ``expand_runs`` over the m live starts.  Returns (a, b) int64
+    (pair_capacity,)."""
+    return expand_pairs_prepped_plain(ids, None, sv, ab, bid, None, m, total,
+                                      pair_capacity, False, 0)
+
+
+def expand_pairs_entries(ids, sv, ab, bid, m, total, pair_capacity: int):
+    """:func:`expand_pairs_entries_plain` on CPU tensors; the CUDA kernel
+    on CUDA tensors (ids int64 per tree entry; sv/ab/bid int64 per prepped
+    entry; m and total int64 scalars on the card)."""
+    if ids.device.type == "cpu":
+        return expand_pairs_entries_plain(ids, sv, ab, bid, m, total,
+                                          pair_capacity)
+    if (ids.dtype != torch.int64 or sv.dtype != torch.int64
+            or ab.dtype != torch.int64 or bid.dtype != torch.int64
+            or not sv.shape == ab.shape == bid.shape):
+        raise ValueError("expand_pairs_entries: int64 ids, and int64 "
+                         "sv/ab/bid of one length expected")
+    dev = ids.device
+    m_t = torch.as_tensor(m, dtype=torch.int64, device=dev).reshape(())
+    total_t = torch.as_tensor(total, dtype=torch.int64,
+                              device=dev).reshape(())
+    _cuda.require_cuda("expand_pairs_entries", ids, sv, ab, bid, m_t,
+                       total_t)
+    a = torch.empty(pair_capacity, dtype=torch.int64, device=dev)
+    b = torch.empty_like(a)
+    _cuda.launch("bpt_expand_v2", ids, sv, ab, bid, m_t, total_t, a, b,
+                 ids.shape[0], int(pair_capacity))
+    expand_pairs_entries.launches += 1
+    return a, b
+
+
+expand_pairs_entries.launches = 0
+
+
 def expand_pairs(ids: torch.Tensor, starts: torch.Tensor, run: torch.Tensor,
                  total, pair_capacity: int):
-    """:func:`expand_pairs_plain` on CPU tensors; the CUDA kernel on CUDA
-    tensors (ids, starts and run int64 of one length, total an int64 scalar
-    on the card).  The kernel reads only ids and starts."""
+    """:func:`expand_pairs_plain` on CPU tensors.  On CUDA tensors (ids,
+    starts and run int64 of one length, total an int64 scalar on the
+    card), kernel 5 compacts the nonempty runs into prepped entries and
+    :func:`expand_pairs_entries` expands them."""
     if ids.device.type == "cpu":
         return expand_pairs_plain(ids, starts, run, total, pair_capacity)
     cap = ids.shape[0]
@@ -60,12 +111,7 @@ def expand_pairs(ids: torch.Tensor, starts: torch.Tensor, run: torch.Tensor,
     total = torch.as_tensor(total, dtype=torch.int64,
                             device=ids.device).reshape(())
     _cuda.require_cuda("expand_pairs", ids, starts, run, total)
-    a = torch.empty(pair_capacity, dtype=torch.int64, device=ids.device)
-    b = torch.empty_like(a)
-    _cuda.launch("bpt_expand_v2", ids, starts, total, a, b, cap,
-                 int(pair_capacity))
-    expand_pairs.launches += 1
-    return a, b
-
-
-expand_pairs.launches = 0
+    lane = torch.arange(cap, dtype=torch.int64, device=ids.device)
+    (sv, ab, bid), m = stream_compact(run > 0, (starts, lane + 1 - starts,
+                                                ids), (HUGE, 0, PAD_ID))
+    return expand_pairs_entries(ids, sv, ab, bid, m, total, pair_capacity)

@@ -14,8 +14,15 @@ keys, ids, aux bits, count and flags.
 
 Data contract: the merge columns are int64 ``key`` and
 ``meta = (id << (dim+1)) | (aux << 1) | tag`` (tag 1 = tombstone), with
-``PAD_KEY`` in both columns for pads.  On the ``wide_ids`` path aux is 0,
-as the JAX package's unpacked path carries no aux.  Static arguments
+``PAD_KEY`` in both columns for pads; ids below 2^32 leave room for aux on
+the ``wide_ids`` path too.  A tombstone cancels its tree entry only on
+(key, id, aux), but the tree's aux column is zeroed wherever a live id
+reaches 2^29 - 1 (``layer.mask_aux``), and a frame can cross that line
+either way.  So the tracked scene carries the tree's aux before that mask
+(``tree_aux``), the merge runs on it, and the new state's aux is masked
+again exactly as ``layer.build`` masks it.  (The JAX package's unpacked
+path carries no aux, ``broadphase_tpu/update.py:191-195``; the port keeps
+it, to equal ``layer.build``.)  Static arguments
 (``churn_cap``, ``obj_cap``, ``slots_per_axis``, ``wide_ids``) are Python
 values; counts and flags stay on the device, so a frame never waits for
 the card.
@@ -36,9 +43,9 @@ import numpy as np
 import torch
 
 from . import geom
-from .index import IndexSpec, PAD_KEY, U32_MASK
-from .layer import (PAD_ID, LayerState, _host, build, capacity_of,
-                    resolve_device)
+from .index import IndexSpec, PAD_KEY, U32_MASK, origin_of
+from .layer import (PAD_ID, LayerState, _build, _host, capacity_of,
+                    mask_aux, resolve_device)
 from .ops.compact import stream_compact
 from .ops.merge import merge_cancel_compact, to_length
 
@@ -59,6 +66,8 @@ class TrackedScene(NamedTuple):
     sig_tmin: torch.Tensor       # (N, dim) int64 truncated local min
     sig_tmax: torch.Tensor       # (N, dim) int64 truncated local max
     sig_contained: torch.Tensor  # (N,) bool
+    tree_aux: torch.Tensor       # (cap,) int32 the tree's aux before the
+                                 # wide-id mask, aligned with state.keys
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -100,9 +109,10 @@ def build_tracked(spec: IndexSpec, system_min, system_max, bounds_min,
     against, on ``device`` (default as ``layer.build``: the first tensor
     input's device, else the card)."""
     dev = resolve_device(device, bounds_min, bounds_max, ids)
-    state = build(spec, system_min, system_max, bounds_min, bounds_max, ids,
-                  slots_per_axis=slots_per_axis, min_depth=min_depth,
-                  out_capacity=out_capacity, device=dev)
+    state, emitted_aux, perm = _build(
+        spec, system_min, system_max, bounds_min, bounds_max, ids,
+        slots_per_axis=slots_per_axis, min_depth=min_depth,
+        out_capacity=out_capacity, device=dev)
     bmin, bmax = _f32(bounds_min, dev), _f32(bounds_max, dev)
     depth, tmin, tmax, contained = _signature(spec, system_min, system_max,
                                               bmin, bmax, min_depth)
@@ -110,7 +120,27 @@ def build_tracked(spec: IndexSpec, system_min, system_max, bounds_min,
         ids = ids.astype(np.int64)
     ids_t = torch.as_tensor(ids, dtype=torch.int64, device=dev)
     return TrackedScene(state, ids_t, bmin, bmax, depth, tmin, tmax,
-                        contained)
+                        contained, emitted_aux[perm])
+
+
+def tree_aux_from_signature(spec: IndexSpec, state: LayerState, ids,
+                            sig_tmin) -> torch.Tensor:
+    """The tree's aux bits recomputed from the signature: bit k of a live
+    entry is set iff its cell's axis-k origin is not its object's
+    truncated minimum (the object's first cell along k); depth-0 cells and
+    pads have none.  ``ids`` (N,) and ``sig_tmin`` (N, dim) as in a
+    :class:`TrackedScene` (unique ids)."""
+    if ids.shape[0] == 0:
+        return torch.zeros_like(state.aux)
+    live = state.ids != PAD_ID
+    order = torch.argsort(ids)
+    pos = torch.searchsorted(ids[order], torch.where(live, state.ids, 0))
+    tmin = sig_tmin[order[pos.clamp(max=ids.shape[0] - 1)]]
+    aux = torch.zeros_like(state.ids)
+    for k, origin in enumerate(origin_of(spec, state.keys)):
+        aux |= (origin != tmin[:, k]).to(torch.int64) << k
+    cell = live & ((state.keys & spec.depth_mask) > 0)
+    return torch.where(cell, aux, 0).to(torch.int32)
 
 
 def _emit_rows(spec: IndexSpec, system_min, system_max, bmin_rows,
@@ -134,26 +164,25 @@ def _pack_meta(dim: int, ids, aux, tag: int):
 
 
 def _churn_stream(spec: IndexSpec, ids_rows, aux_row, key_rows, valid_rows,
-                  tag: int, wide_ids: bool):
+                  tag: int):
     """One churn side as flat (key, meta) columns and its keep mask;
     invalid lanes hold ``PAD_KEY``."""
     OC, S = valid_rows.shape
     keep = valid_rows.reshape(OC * S)
     ids2 = ids_rows[:, None].expand(OC, S).reshape(OC * S)
     aux2 = aux_row.to(torch.int64)[None, :].expand(OC, S).reshape(OC * S)
-    if wide_ids:
-        aux2 = torch.zeros_like(aux2)
     meta = _pack_meta(spec.dim, ids2, aux2, tag)
     return (torch.where(keep, key_rows.reshape(OC * S), PAD_KEY),
             torch.where(keep, meta, PAD_KEY), keep)
 
 
-def _tree_merge_cols(spec: IndexSpec, state: LayerState, wide_ids: bool):
-    """The sorted tree as merge columns (tag 0); pads stay ``PAD_KEY``."""
+def _tree_merge_cols(spec: IndexSpec, tracked: TrackedScene):
+    """The sorted tree as merge columns (tag 0), with its aux before the
+    wide-id mask; pads stay ``PAD_KEY``."""
+    state = tracked.state
     live = state.ids != PAD_ID
-    aux = torch.zeros_like(state.ids) if wide_ids \
-        else state.aux.to(torch.int64)
-    meta = torch.where(live, _pack_meta(spec.dim, state.ids, aux, 0),
+    meta = torch.where(live, _pack_meta(spec.dim, state.ids,
+                                        tracked.tree_aux.to(torch.int64), 0),
                        PAD_KEY)
     return state.keys, meta
 
@@ -241,11 +270,11 @@ def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
         else ~narrow
 
     t_key, t_meta, t_keep = _churn_stream(
-        spec, ids_rows, aux_row, old_keys, old_v & row_live[:, None], 1,
-        wide_ids)                                            # tombstones
+        spec, ids_rows, aux_row, old_keys, old_v & row_live[:, None],
+        1)                                                   # tombstones
     i_key, i_meta, i_keep = _churn_stream(
-        spec, ids_rows, aux_row, new_keys, new_v & row_live[:, None], 0,
-        wide_ids)                                            # inserts
+        spec, ids_rows, aux_row, new_keys, new_v & row_live[:, None],
+        0)                                                   # inserts
 
     # compact the 2*OC*S churn lanes to the 2C merge budget, then order the
     # buffer by (key, meta): meta's (id, aux, tag) lands each tombstone
@@ -288,7 +317,7 @@ def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
     # merge, cancel and compact in one kernel; it has no churn window, so
     # the JAX package's choice between its kernel and a global merge
     # (broadphase_tpu/update.py:215-241) has no counterpart here
-    tree_key, tree_meta = _tree_merge_cols(spec, state, wide_ids)
+    tree_key, tree_meta = _tree_merge_cols(spec, tracked)
     (out_key, out_meta), new_count, merge_ovf = merge_cancel_compact(
         tree_key, tree_meta, churn.key, churn.meta, churn.count, cap)
     o_ids, o_aux = _unpack_meta(spec, out_meta, cap, new_count)
@@ -297,7 +326,9 @@ def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
     new_state = state._replace(
         keys=out_key,
         ids=o_ids,
-        aux=o_aux,
+        # without wide_ids every live id is below 2^28 - 1 (else overflow
+        # is set), where build masks nothing
+        aux=mask_aux(o_ids, o_aux) if wide_ids else o_aux,
         count=new_count.clamp(max=cap),
         sorted=_host(True, torch.bool),
         invalid_count=(~contained).sum(dtype=torch.int64),
@@ -305,4 +336,4 @@ def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
                   | (new_count > cap)),
     )
     return TrackedScene(new_state, tracked.ids, bmin_f, bmax_f,
-                        *churn.signature)
+                        *churn.signature, o_aux)

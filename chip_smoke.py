@@ -1,9 +1,11 @@
 """On-card smoke test of broadphase_tpu_torch: builds the seven CUDA kernels,
 holds each against its plain PyTorch version (kernel 2, pass 1 of the scan,
-also against the run ends of the adjacent-LCA depths), drives the build +
-scan step at 30k and 1M boxes against the C++ oracle, the v2 scan at 1M,
-and the temporal-coherence update path at 1M boxes and four churn
-fractions against a fresh build and the oracle.
+also against the run ends of the adjacent-LCA depths; kernel 1 slot for
+slot, also when the tree overflows; kernel 7 on both of its entry points),
+drives the build + scan step at 30k and 1M boxes against the C++ oracle,
+the v2 scan at 1M, and the temporal-coherence update path at 1M boxes and
+four churn fractions (and a wide-ids frame) against a fresh build, aux
+bits included, and the oracle.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -33,11 +35,14 @@ from broadphase_tpu_torch import (Index32_2D, Index64_2D, Index64_3D,
 from broadphase_tpu_torch import oracle as native
 from broadphase_tpu_torch import update as upd
 from broadphase_tpu_torch.index import PAD_KEY, depth_of
-from broadphase_tpu_torch.ops import _cuda, search
+from broadphase_tpu_torch.ops import _cuda
 from broadphase_tpu_torch.ops.build import emit_build, emit_build_plain
 from broadphase_tpu_torch.ops.compact import (stream_compact,
                                               stream_compact_plain)
-from broadphase_tpu_torch.ops.expand import expand_pairs, expand_pairs_plain
+from broadphase_tpu_torch.ops.expand import (expand_pairs,
+                                             expand_pairs_entries,
+                                             expand_pairs_entries_plain,
+                                             expand_pairs_plain)
 from broadphase_tpu_torch.ops.expand2 import (expand_pairs_prepped,
                                               expand_pairs_prepped_plain)
 from broadphase_tpu_torch.ops.merge import (merge_cancel_compact,
@@ -48,13 +53,19 @@ from broadphase_tpu_torch.ops.runends import (adjacent_lca_depth,
                                               scan_pass1, scan_pass1_plain)
 
 SPEC = Index64_3D
+# kernels 4 and 7 are one template, expand_partitioned_kernel<kRule>; the
+# profiler shows its demangled or its mangled name
+K4_NAMES = ("expand_partitioned_kernel<true>",
+            "expand_partitioned_kernelILb1E")
+K7_NAMES = ("expand_partitioned_kernel<false>",
+            "expand_partitioned_kernelILb0E")
 KERNELS = {
     # name: (wrapper, source, TPU kernel it replaces, path whose launches
     # the kernels line reports, names of the device work its entry point
     # launches, as the profiler shows them)
     "emit_build": (emit_build, "broadphase_tpu_torch/csrc/build.cu",
                    "broadphase_tpu/ops/pallas_build.py:290", "step",
-                   ("build_kernel",)),
+                   ("build_kernel", "Memset")),
     "run_ends": (scan_pass1, "broadphase_tpu_torch/csrc/runends.cu",
                  "broadphase_tpu/ops/pallas_runends.py:103", "step",
                  ("pass1_kernel", "Memset")),
@@ -64,7 +75,7 @@ KERNELS = {
     "expand_pairs_prepped": (expand_pairs_prepped,
                              "broadphase_tpu_torch/csrc/expand2.cu",
                              "broadphase_tpu/ops/pallas_expand2.py:307",
-                             "step", ("expand_partitioned",)),
+                             "step", K4_NAMES),
     "stream_compact": (stream_compact, "broadphase_tpu_torch/csrc/compact.cu",
                        "broadphase_tpu/ops/pallas_compact.py:200", "step",
                        ("compact_onepass", "Memset")),
@@ -72,9 +83,12 @@ KERNELS = {
                              "broadphase_tpu_torch/csrc/merge.cu",
                              "broadphase_tpu/ops/pallas_merge.py:263",
                              "frame", ("merge_path", "Memset")),
-    "expand_pairs": (expand_pairs, "broadphase_tpu_torch/csrc/expand.cu",
+    # kernel 7: the v2 scan calls the entries' wrapper; expand_pairs (the
+    # JAX function's contract) runs kernel 5 and then that wrapper
+    "expand_pairs": (expand_pairs_entries,
+                     "broadphase_tpu_torch/csrc/expand2.cu",
                      "broadphase_tpu/ops/pallas_expand.py:203", "scan_v2",
-                     ("expand_v2",)),
+                     K7_NAMES),
 }
 
 # The least time the card could take: the
@@ -92,10 +106,10 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 LAYER_OF_KERNEL = (("build_kernel", "k1 build"),
                    ("pass1_kernel", "k2 pass 1 (run ends, rule bytes)"),
                    ("prep_onepass", "k3 prep"),
+                   *((k, "k7 expand v2") for k in K7_NAMES),
                    ("expand_partitioned", "k4 expand"),
                    ("compact_onepass", "k5 compact"),
                    ("merge_path", "k6 merge"),
-                   ("expand_v2", "k7 expand v2"),
                    ("RadixSort", "torch.sort"), ("Memcpy", "copies"),
                    ("Memset", "copies"))
 
@@ -181,13 +195,14 @@ def kernel_device_ms(fn, names=None, reps: int = 10) -> float:
 def ptxas_summary(names) -> list:
     """Registers, shared memory and spills of each kernel whose mangled
     name holds one of ``names``, from the build's ``-Xptxas=-v`` report;
-    a template's integer arguments follow its name (``build_kernel<3,2>``)."""
+    a template's integer and bool arguments follow its name
+    (``build_kernel<3,2>``, ``prep_onepass<1>``)."""
     log = _cuda.ptxas_log(_cuda.library_path())
     fn, spill, out = None, "", []
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             fn = next((k for k in names if k in line), None)
-            targs = re.findall(r"Li(-?\d+)E", line)
+            targs = re.findall(r"L[ib](-?\d+)E", line)
             if fn and targs:
                 fn += "<" + ",".join(targs) + ">"
             spill = ""
@@ -270,22 +285,23 @@ def compare_pass1(spec, keys, aux):
 
 
 def compare_build(inputs, out_cap, spec=SPEC, min_depth=0, slots=2):
-    """Kernel 1 against its plain version: count and cell-overflow flag
-    exact, and the sorted cells when they all fit.  Returns (max_abs_err,
-    the plain version's (count, flag))."""
+    """Kernel 1 against its plain version: the cells slot for slot (the
+    same object-major prefix when count > out_cap), count and cell-overflow
+    flag, exact.  Returns (max_abs_err, the plain version's (count,
+    flag))."""
     args = (spec, *inputs, min_depth, out_cap, slots)
-    got, want = emit_build(*args), emit_build_plain(*args)
-    err = max_abs_err(got[3:], want[3:])
-    if int(want[3]) <= out_cap:   # the kept subset is arbitrary on overflow
-        err = max(err, max_abs_err(layer._sort_tree(spec, *got[:3]),
-                                   layer._sort_tree(spec, *want[:3])))
+    want = emit_build_plain(*args)
+    err = max_abs_err(emit_build(*args), want)
     return err, (int(want[3]), bool(want[4]))
 
 
 def compare_all(state, inputs, emit_cap):
-    """Kernels 1-5 and 7 against their plain versions on one step's inputs.
-    Returns ({name: max_abs_err}, {name: (args, plain function, bytes the
-    function moves, library call or None)})."""
+    """Kernels 1-5 and 7 against their plain versions on one step's inputs
+    (kernel 3 also without meta and kernel 7 on both entry points, as the
+    v2 scan and the JAX function's contract run them).  Returns ({name:
+    max_abs_err}, {name: (args, plain function, bytes the function moves,
+    library call or None)}, {name: the same for the v2 scan's kernel 3 and
+    the JAX-shaped kernel 7})."""
     errs, timed = {}, {}
     cap = state.keys.shape[0]
     errs["emit_build"], _ = compare_build(inputs, cap)
@@ -326,15 +342,37 @@ def compare_all(state, inputs, emit_cap):
                                nbytes(valid, a, b) + nbytes(*got),
                                lambda: (a[valid], b[valid]))
 
-    # kernel 7 on the same tree: the v2 branch's starts and run
-    starts, run, v2_total = layer.runs_v2(
-        search.descendant_run_ends(SPEC, state.keys), state.count)
-    vargs = (state.ids, starts, run, v2_total, emit_cap)
-    got = expand_pairs(*vargs)
-    errs["expand_pairs"] = max_abs_err(got, expand_pairs_plain(*vargs))
-    timed["expand_pairs"] = (vargs, expand_pairs_plain,
-                             nbytes(state.ids, starts) + nbytes(*got), None)
-    return errs, timed
+    # the v2 scan on the same tree: kernel 3 without meta, then kernel 7 on
+    # its entries; and kernel 7 through the JAX function's contract
+    v2_prep = (e, state.ids, None, state.count)
+    prepped_v2 = prep_runs(*v2_prep)
+    check(prepped_v2[3] is None, "prep_runs: a bmeta column without meta")
+    no_bm = prepped_v2[:3] + prepped_v2[4:]
+    want_v2 = prep_runs_plain(*v2_prep)
+    errs["prep_runs"] = max(errs["prep_runs"], max_abs_err(
+        no_bm, want_v2[:3] + want_v2[4:]),
+        max_abs_err(no_bm, prepped[:3] + prepped[4:]))
+    extra = {"prep_runs (no meta, v2 scan)": (
+        prep_runs, v2_prep, prep_runs_plain,
+        nbytes(e, state.ids, *prepped_v2[:3]), ("prep_onepass", "Memset"))}
+    sv2, ab2, bid2, _, m2, total2, _ = prepped_v2
+    vargs = (state.ids, sv2, ab2, bid2, m2, total2, emit_cap)
+    got = expand_pairs_entries(*vargs)
+    errs["expand_pairs"] = max_abs_err(got, expand_pairs_entries_plain(*vargs))
+    # the live tree's ids, the m entries' sv/ab/bid, the slots
+    timed["expand_pairs"] = (vargs, expand_pairs_entries_plain,
+                             8 * int(state.count) + 24 * int(m2)
+                             + nbytes(*got), None)
+    starts, run, v2_total = layer.runs_v2(e, state.count)
+    jargs = (state.ids, starts, run, v2_total, emit_cap)
+    jgot = expand_pairs(*jargs)
+    errs["expand_pairs"] = max(errs["expand_pairs"], max_abs_err(
+        jgot, expand_pairs_plain(*jargs)), max_abs_err(jgot, got))
+    extra["expand_pairs (JAX contract: k5 + k7)"] = (
+        expand_pairs, jargs, expand_pairs_plain,
+        nbytes(state.ids, starts, run) + nbytes(*jgot),
+        K7_NAMES + ("compact_onepass", "Memset"))
+    return errs, timed, extra
 
 
 def compare_merge(args):
@@ -591,10 +629,12 @@ def prep_adversarial(dev):
 
 
 def build_adversarial(dev):
-    """Kernel 1 on each spec with A = 2 and A = 3: depth-0 objects, min_depth
-    0, 4 and 12 (the last sets the cell-overflow flag), a scene with half of
-    its objects outside the system box, n one below, at and one above a
-    256-object block, and an undersized out_cap (count and flag only)."""
+    """Kernel 1 on each spec with A = 2 and A = 3, slot for slot: depth-0
+    objects, min_depth 0, 4 and 12 (the last sets the cell-overflow flag),
+    a scene with half of its objects outside the system box, n one below,
+    at and one above a 256-object block, and out_cap below the count (n/2,
+    1, 257, a third of the count and one short of it: the same prefix);
+    two calls in a row on one stream (stale status words)."""
     n_cases, flags, over_cap = 0, set(), False
     for spec in (Index64_3D, Index64_2D, Index32_2D):
         scene = with_box(bench_caps.bench_scene(spec.dim, 3000, seed=11),
@@ -619,6 +659,19 @@ def build_adversarial(dev):
                 compare_build(tuple(x[:n] for x in inputs), 27 * n, spec, 0,
                               slots)
                 n_cases += 1
+        for slots in (2, 3):
+            count = int(emit_build_plain(spec, *inputs, 0, 1, slots)[3])
+            for out_cap in (1, 257, count // 3, count - 1):
+                compare_build(inputs, out_cap, spec, 0, slots)
+                n_cases += 1
+    # two calls in a row on the stream: the second reuses the first's
+    # scratch, so a status word left over from the first would show
+    small = build_inputs(bench_caps.bench_scene(3, 5000, seed=16), dev)
+    big = build_inputs(bench_caps.bench_scene(3, 9000, seed=17), dev)
+    got = [emit_build(SPEC, *x, 0, 8 * 9000) for x in (big, small)]
+    for g, x in zip(got, (big, small)):
+        max_abs_err(g, emit_build_plain(SPEC, *x, 0, 8 * 9000))
+    n_cases += 2
     check(flags == {False, True} and over_cap, "kernel 1 cases: the cell-"
           "overflow flag or an undersized out_cap was never reached")
     return n_cases
@@ -790,9 +843,10 @@ def merge_path_adversarial(dev):
 
 
 def expand_adversarial(dev):
-    """Kernel 7 on edge cases: a run longer than any block, all runs
-    empty, total mid-buffer, total above the pair capacity, an empty
-    tree."""
+    """Kernel 7 on edge cases, through both entry points (the JAX
+    function's starts and runs, and the prepped entries of the same runs):
+    a run longer than any block, all runs empty, total mid-buffer, total
+    above the pair capacity, an empty tree."""
     rng = np.random.default_rng(6)
     n_cases = 0
     mixed = np.zeros(50_000, np.int64)
@@ -811,8 +865,13 @@ def expand_adversarial(dev):
         args = tuple(torch.as_tensor(x, device=dev)
                      for x in (ids, starts, run)) + (
             torch.tensor(int(run.sum()), device=dev), P)
-        max_abs_err(expand_pairs(*args), expand_pairs_plain(*args))
-        n_cases += 1
+        want = expand_pairs_plain(*args)
+        max_abs_err(expand_pairs(*args), want)
+        ent = prepped_entries(run, ids, n_cases, dev)
+        eargs = (ent[0], *ent[2:5], ent[6], ent[7], P)
+        max_abs_err(expand_pairs_entries(*eargs), want)
+        max_abs_err(expand_pairs_entries_plain(*eargs), want)
+        n_cases += 2
     return n_cases
 
 
@@ -974,7 +1033,7 @@ def update_sweep(scene_big, dev, tree_cap, pair_cap, emit_cap):
         if frac == 0.01:    # the frame path, counted: update + scan
             churn = upd._frame_churn(SPEC, tracked, smin_t, smax_t, *B,
                                      churn_cap, 2, obj_cap, False)
-            merge_args = (*upd._tree_merge_cols(SPEC, tracked.state, False),
+            merge_args = (*upd._tree_merge_cols(SPEC, tracked),
                           churn.key, churn.meta, churn.count, tree_cap)
             reset_launches()
             t_b = frame_update(tracked, B)
@@ -989,6 +1048,7 @@ def update_sweep(scene_big, dev, tree_cap, pair_cap, emit_cap):
             t_b = frame_update(tracked, B)
         fresh = layer.build(SPEC, smin_t, smax_t, *B, ids_t,
                             out_capacity=tree_cap)
+        check(bool(torch.any(fresh.aux != 0)), f"{label}: no aux bits")
         check(not bool(t_b.state.overflow), f"{label}: overflow")
         check(states_equal(t_b.state, fresh),
               f"{label}: the update differs from a fresh build")
@@ -1014,7 +1074,15 @@ def update_sweep(scene_big, dev, tree_cap, pair_cap, emit_cap):
             check(bool(frame_update(wide, B).state.overflow),
                   f"{label}: ids >= 2^28 - 1 without wide_ids did not set "
                   "overflow")
-            extra += ("; churn_cap 64 and ids >= 2^28-1 without "
+            # the wide-ids path on ids from 0 keeps aux as a fresh build
+            wide0 = upd.update(SPEC, tracked, smin_t, smax_t, *B, churn_cap,
+                               obj_cap=obj_cap, wide_ids=True)
+            check(not bool(wide0.state.overflow)
+                  and states_equal(wide0.state, fresh),
+                  f"{label}: the wide-ids update of ids from 0 differs from "
+                  "a fresh build")
+            extra += ("; the wide-ids update of ids from 0 equals it too, "
+                      "aux included; churn_cap 64 and ids >= 2^28-1 without "
                       f"wide_ids set overflow; launches of the frame "
                       f"(update + canonical scan) {frame_launches}")
         print(f"{label}: churn_cap {churn_cap}, obj_cap {obj_cap}; the "
@@ -1078,7 +1146,8 @@ def main() -> int:
     print(f"build: {len(KERNELS)} kernels from broadphase_tpu_torch/csrc in "
           f"{time.perf_counter() - t0:.1f} s -> {_cuda.library_path().name}")
     print("ptxas: " + " | ".join(ptxas_summary(sorted(
-        {k for *_, names in KERNELS.values() for k in names} - {"Memset"}))))
+        {re.split(r"<|ILb", k)[0] for *_, names in KERNELS.values()
+         for k in names} - {"Memset"}))))
 
     n_big = 1_000_000
     scene_big = bench_caps.bench_scene(3, n_big)
@@ -1092,16 +1161,27 @@ def main() -> int:
     inputs = build_inputs(scene_big, dev)
     state_big = layer.build(SPEC, *scene_big, out_capacity=tree_cap,
                             device=dev)
-    errs, timed = compare_all(state_big, inputs, emit_cap)
+    errs, timed, extra = compare_all(state_big, inputs, emit_cap)
+    # kernel 1 at 1M with the tree a third of the count: the same prefix
+    errs["emit_build"] = max(errs["emit_build"],
+                             compare_build(inputs, tree_cap // 3)[0])
     glue, glue_ops = device_ms_by_layer(
         lambda: pass1_glue(state_big.keys, state_big.aux))
     print(f"pass-1 glue at 1M (the torch operations kernel 2 absorbed, run "
           f"as the step ran them before): device {sum(glue.values()):.3f} "
           f"ms, {glue_ops:.0f} device operations (5 profiled calls)")
+    e_big = scan_pass1(SPEC, state_big.keys, rules=False)[0]
+    glue, glue_ops = device_ms_by_layer(
+        lambda: layer.runs_v2(e_big, state_big.count))
+    print(f"runs_v2 glue at 1M (the torch operations kernel 3 took over in "
+          f"the v2 scan, run as the scan ran them before): device "
+          f"{sum(glue.values()):.3f} ms, {glue_ops:.0f} device operations "
+          f"(5 profiled calls)")
     n_cases = adversarial(dev)
     print(f"adversarial: {n_cases} kernel cases exact (empty, one element, "
           f"ragged sizes, depth-0 and shallow boxes, outside boxes, "
-          f"undersized tree, total > emit_cap, ids either side of 2^24-1; "
+          f"undersized tree, total > emit_cap, ids either side of 2^24-1, "
+          f"kernel 3 with and without meta, kernel 7 on both entry points; "
           f"pass 1: n = 1 and 2, n around a tile multiple, 1000+ tiles, the "
           f"three specs, a depth-0 box, lca = 0 boundaries many tiles apart,"
           f" pads from mid-tile, aux all zero, all set and random, two calls"
@@ -1114,8 +1194,9 @@ def main() -> int:
           f"cap around a tile multiple, total >= 2^31 (wrapped) and > 2^40,"
           f" two calls in a row; build: the three specs at A = 2 and 3, "
           f"depth-0 objects, min_depth 0/4/12 (cell overflow), half the "
-          f"objects outside, n around the 256-object block, undersized "
-          f"out_cap; expansion: a run longer than "
+          f"objects outside, n around the 256-object block, out_cap below "
+          f"the count (n/2, 1, 257, a third, one short) slot for slot, two "
+          f"calls in a row; expansion: a run longer than "
           f"several blocks, every run of length 1 (m = total), block edges "
           f"on run starts, runs one block long, m = 0, each with total "
           f"mid-block and total > capacity, rule on and off, ids either "
@@ -1126,7 +1207,7 @@ def main() -> int:
           f" multiple, all churn in one tile's key range, a tombstone first "
           f"in a tile with its twin last in the one before, equal (key, "
           f"meta) ties across a tile edge, cap + nc >= 2^31 refused; v2 "
-          f"expansion: a run "
+          f"expansion, on the JAX contract and on entries: a run "
           f"longer than any block, all runs empty, total mid-buffer, "
           f"total > pair capacity, empty tree)")
 
@@ -1206,17 +1287,40 @@ def main() -> int:
     _, res2 = layer.scan(SPEC, state, emit_cap, emit_capacity=emit_cap,
                          expand="v2")
     v2_launches = read_launches()
-    check(v2_launches["expand_pairs"] > 0,
-          f"1M v2 scan: kernel 7 was not launched: {v2_launches}")
+    check(all(v2_launches[k] > 0 for k in ("run_ends", "prep_runs",
+                                           "expand_pairs")),
+          f"1M v2 scan: kernel 2, 3 or 7 was not launched: {v2_launches}")
     got2 = layer.scan_result_to_numpy(res2)
     check(np.array_equal(got2, want),
           f"1M v2 scan: {got2.shape[0]} canonical pairs differ from the "
           f"oracle's {want.shape[0]}")
-    v2_ms = host_ms(lambda: step(scene_t, tree_cap, emit_cap, emit_cap,
-                                 True, expand="v2"), 20)
-    print(f"scan_v2 1M: {got2.shape[0]} canonical pairs equal the oracle; "
+    # emission order keeps the duplicate emissions (no rule); as a set
+    # they are the oracle's pairs
+    _, ures2 = layer.scan(SPEC, state, emit_cap, emit_capacity=emit_cap,
+                          canonical=False, expand="v2")
+    check(not bool(ures2.overflow) and np.array_equal(
+        np.unique(layer.scan_result_to_numpy(ures2), axis=0), want),
+          "1M v2 scan canonical=False: the set of pairs differs from the "
+          "oracle's")
+
+    def v2_step():
+        return step(scene_t, tree_cap, emit_cap, emit_cap, True, expand="v2")
+
+    for _ in range(3):
+        v2_step()
+    v2_ms = host_ms(v2_step, 20)
+    v2_p50 = np.percentile(v2_ms, 50)
+    print(f"scan_v2 1M: {got2.shape[0]} canonical pairs equal the oracle, "
+          f"and the set of its {int(ures2.count)} emission-order pairs; "
           f"overflow {bool(res2.overflow)}; launches {v2_launches}; step "
-          f"(build + v2 scan) p50 {np.percentile(v2_ms, 50):.3f} ms (20)")
+          f"(build + v2 scan) p50 {v2_p50:.3f} ms (20)")
+    layers, ops = device_ms_by_layer(v2_step)
+    busy = sum(layers.values())
+    print(f"profile 1M v2 step: device busy {busy:.3f} ms/step of the "
+          f"{v2_p50:.3f} ms p50 (idle share {1 - busy / v2_p50:.3f}), "
+          f"{ops:.0f} device operations per step; " + ", ".join(
+              f"{k} {v:.3f}" for k, v in
+              sorted(layers.items(), key=lambda kv: -kv[1])))
 
     # 7. the update path at 1M, four churn fractions
     results, frame_launches, merge_args = update_sweep(
@@ -1262,6 +1366,14 @@ def main() -> int:
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": library_ms,
                      "library_device_ms": library_device_ms})
+    # the v2 scan's kernel 3 and the JAX-shaped kernel 7, timed alike
+    for name, (wrapper, args, plain, moved, names) in extra.items():
+        device_ms = kernel_device_ms(lambda: wrapper(*args), names)
+        bound_ms, _ = bound(moved)
+        print(f"kernel {name}: exact at the 1M shapes; device {device_ms:.3f}"
+              f" ms, call {cuda_ms(lambda: wrapper(*args)):.3f} ms, plain "
+              f"{cuda_ms(lambda: plain(*args)):.3f} ms, bound {bound_ms:.3f} "
+              f"ms ({moved / 1e6:.1f} MB)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -118,3 +118,27 @@ def test_empty_build():
                           np.zeros((0, 3), np.float32),
                           np.zeros(0, np.uint32), 256)
     assert count == 0 and not ovf
+
+
+@pytest.mark.parametrize("cut", [1, 2, 3])
+def test_overflow_keeps_the_object_major_prefix(cut):
+    """The cells come object by object, x-fastest, and a smaller
+    out_capacity keeps a prefix of them: the contract the kernel keeps on
+    the card too, slot for slot."""
+    tspec = tidx.Index64_3D
+    sc = gen.gen_boxes(count=700, density=1.0 / 1000.0, seed=4)
+    lmin, lmax, contained = _quantized(sc.system_min, sc.system_max,
+                                       sc.bounds_min, sc.bounds_max)
+    args = (torch.as_tensor(lmin.astype(np.int64)),
+            torch.as_tensor(lmax.astype(np.int64)),
+            torch.as_tensor(contained.copy()),
+            torch.arange(700, dtype=torch.int64))
+    full = tbuild.emit_build(tspec, *args, 0, 8 * 700)
+    count = int(full[3])
+    ids = full[1][:count]
+    assert bool(torch.all(ids[1:] >= ids[:-1]))
+    out_cap = {1: 1, 2: count // 2, 3: count - 1}[cut]
+    part = tbuild.emit_build(tspec, *args, 0, out_cap)
+    assert int(part[3]) == count
+    for got, want in zip(part[:3], full[:3]):
+        assert torch.equal(got, want[:out_cap])

@@ -1,11 +1,14 @@
-"""Port parity: kernel 7, ops/expand.py::expand_pairs (the v2 expansion),
-and the scan branch that takes it, ``layer.scan(..., expand="v2")``.
+"""Port parity: kernel 7, ops/expand.py (the v2 expansion), and the scan
+branch that takes it, ``layer.scan(..., expand="v2")``.
 
-The plain version against the JAX Pallas kernel
-``broadphase_tpu.ops.pallas_expand.expand_pairs`` in interpret mode on
-cases of ``tests/test_pallas_expand.py``, slot for slot; and the port's v2
-scan against JAX ``layer.scan`` with ``BROADPHASE_FORCE_PALLAS=1`` and
-``BROADPHASE_EXPAND=v2``, both contracts, pairs, counts and flags exact.
+The plain versions of both entry points (``expand_pairs`` on every
+element's starts and runs, ``expand_pairs_entries`` on the entries that
+the prep kernel's plain version makes from the same runs) against the JAX
+Pallas kernel ``broadphase_tpu.ops.pallas_expand.expand_pairs`` in
+interpret mode on cases of ``tests/test_pallas_expand.py``, slot for
+slot; and the port's v2 scan against JAX ``layer.scan`` with
+``BROADPHASE_FORCE_PALLAS=1`` and ``BROADPHASE_EXPAND=v2``, both
+contracts, pairs, counts and flags exact.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from broadphase_tpu.ops.pallas_expand import expand_pairs as jexpand
 from broadphase_tpu_torch import index as tidx
 from broadphase_tpu_torch import layer as tl
 from broadphase_tpu_torch.ops import expand as texpand
+from broadphase_tpu_torch.ops import prep as tprep
 
 from test_torch_layer import _assert_scan_equal, _scene
 
@@ -55,9 +59,25 @@ def _runs(case):
     return ids, run, ((int(run.sum()) // TILE) - 1) * TILE
 
 
-@pytest.mark.parametrize("case", ["long_run", "far_apart", "total_mid_buffer",
-                                  "all_empty", "total_over_capacity"])
+def _entries(ids, run):
+    """The prep kernel's plain version on the run ends that give ``run``
+    (e[j] = j + 1 + run[j], count = cap): (ids, sv, ab, bid, m, total)."""
+    cap = len(run)
+    e = (np.arange(cap) + 1 + run).astype(np.int32)
+    t_ids = torch.as_tensor(ids.astype(np.int64))
+    sv, ab, bid, bmeta, m, total, _ = tprep.prep_runs_plain(
+        torch.as_tensor(e), t_ids, None, cap)
+    assert bmeta is None and int(total) == int(run.sum())
+    return t_ids, sv, ab, bid, m, total
+
+
+_CASES = ["long_run", "far_apart", "total_mid_buffer", "all_empty",
+          "total_over_capacity"]
+
+
+@pytest.mark.parametrize("case", _CASES)
 def test_plain_matches_jax_kernel(case):
+    """Both entry points' plain versions against the JAX kernel."""
     ids, run, P = _runs(case)
     starts = np.cumsum(run) - run
     total = int(run.sum())
@@ -69,6 +89,26 @@ def test_plain_matches_jax_kernel(case):
                                 torch.as_tensor(run), total, P)
     np.testing.assert_array_equal(a.numpy(), np.asarray(want_a, np.int64))
     np.testing.assert_array_equal(b.numpy(), np.asarray(want_b, np.int64))
+    a, b = texpand.expand_pairs_entries(*_entries(ids, run), P)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(want_a, np.int64))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(want_b, np.int64))
+
+
+@pytest.mark.parametrize("case", _CASES)
+def test_entries_match_runs(case):
+    """On the entries of the same runs, the v2 expansion equals the
+    expansion of every element's starts and runs, and kernel 4's plain
+    version with the rule off, slot for slot, at a pair capacity below
+    and above total."""
+    ids, run, P = _runs(case)
+    ent = _entries(ids, run)
+    starts = torch.as_tensor(np.cumsum(run) - run)
+    for cap in (P, int(run.sum()) + 3 * TILE + 5):
+        got = texpand.expand_pairs_entries(*ent, cap)
+        want = texpand.expand_pairs_plain(ent[0], starts,
+                                          torch.as_tensor(run), ent[5], cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 N = 400

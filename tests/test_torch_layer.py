@@ -57,7 +57,7 @@ def _pairs_jax(res):
                      np.asarray(res.pairs_b)[:cnt]], axis=1)
 
 
-def _assert_tree_equal(spec, tspec, jst, tst):
+def _assert_tree_equal(spec, tspec, jst, tst, aux=True):
     assert int(tst.count) == int(jst.count)
     assert int(tst.invalid_count) == int(jst.invalid_count)
     assert bool(tst.overflow) == bool(jst.overflow)
@@ -66,8 +66,9 @@ def _assert_tree_equal(spec, tspec, jst, tst):
                                   jax_keys_np(spec, jst.keys)[:cnt])
     np.testing.assert_array_equal(tst.ids[:cnt].numpy().astype(np.uint32),
                                   np.asarray(jst.ids)[:cnt])
-    np.testing.assert_array_equal(tst.aux[:cnt].numpy().astype(np.uint32),
-                                  np.asarray(jst.aux)[:cnt])
+    if aux:
+        np.testing.assert_array_equal(tst.aux[:cnt].numpy().astype(np.uint32),
+                                      np.asarray(jst.aux)[:cnt])
 
 
 def _assert_scan_equal(jres, tres):
@@ -205,13 +206,15 @@ def test_layer_builder_and_empty_layer():
 
 
 def _meta_args(name):
+    """(wrapper, its arguments on the meta device, the wrapper whose count
+    its kernel launch adds to)."""
     m = "meta"
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=m)
 
     i64, i32 = torch.int64, torch.int32
-    return {
+    fn, args = {
         "emit_build": (build.emit_build, (tidx.Index64_3D, z((4, 3), i64),
                                           z((4, 3), i64),
                                           z(4, torch.bool), z(4, i64), 0, 32)),
@@ -219,6 +222,8 @@ def _meta_args(name):
                                           z(4, i32))),
         "prep_runs": (prep.prep_runs, (z(4, i32), z(4, i64), z(4, i32),
                                        z((), i64))),
+        "prep_runs_no_meta": (prep.prep_runs, (z(4, i32), z(4, i64), None,
+                                               z((), i64))),
         "expand_pairs_prepped": (expand2.expand_pairs_prepped,
                                  (z(4, i64), z(4, i32), z(4, i64), z(4, i64),
                                   z(4, i64), z(4, i32), z((), i64),
@@ -230,17 +235,24 @@ def _meta_args(name):
                                   z((), i64), 4)),
         "expand_pairs": (expand.expand_pairs,
                          (z(4, i64), z(4, i64), z(4, i64), z((), i64), 16)),
+        "expand_pairs_entries": (expand.expand_pairs_entries,
+                                 (z(4, i64), z(4, i64), z(4, i64), z(4, i64),
+                                  z((), i64), z((), i64), 16)),
     }[name]
+    counted = expand.expand_pairs_entries if name == "expand_pairs" else fn
+    return fn, args, counted
 
 
 @pytest.mark.parametrize("name", ["emit_build", "run_ends", "prep_runs",
+                                  "prep_runs_no_meta",
                                   "expand_pairs_prepped", "stream_compact",
-                                  "merge_cancel_compact", "expand_pairs"])
+                                  "merge_cancel_compact", "expand_pairs",
+                                  "expand_pairs_entries"])
 def test_kernel_wrappers_dispatch_on_device(name):
     """A tensor not on the CPU goes to the kernel, which refuses anything
     but a CUDA tensor: no silent plain path, and no launch counted."""
-    fn, args = _meta_args(name)
-    before = fn.launches
+    fn, args, counted = _meta_args(name)
+    before = counted.launches
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args)
-    assert fn.launches == before
+    assert counted.launches == before

@@ -85,3 +85,20 @@ def test_wrapped_exactly_when_int32_prefix_sum_wraps(n, wraps):
     assert int(total) == n * (n - 1) // 2
     assert int(m) == n - 1
     assert bool(wrapped) == xla_wrapped == wraps
+
+
+@pytest.mark.parametrize("cap,count_frac,style", [
+    (5000, 0.7, "random"), (8192, 0.9, "sparse"), (4096, 0.0, "empty"),
+    (12289, 1.0, "random")])
+def test_prep_runs_without_meta(cap, count_frac, style):
+    """With meta None (the v2 scan) there is no bmeta column, and every
+    other output equals the meta mode's."""
+    rng = np.random.default_rng(cap)
+    e, count = _runs(cap, count_frac, style, rng)
+    ids = torch.as_tensor(rng.integers(0, 1 << 32, cap))
+    meta = torch.as_tensor(rng.integers(0, 256, cap).astype(np.int32))
+    with_meta = tprep.prep_runs(torch.as_tensor(e), ids, meta, count)
+    without = tprep.prep_runs(torch.as_tensor(e), ids, None, count)
+    assert without[3] is None
+    for i in (0, 1, 2, 4, 5, 6):
+        assert torch.equal(without[i], with_meta[i])

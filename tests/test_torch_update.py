@@ -59,6 +59,11 @@ class _Pair:
                              self.bmax).astype(np.float32)
 
     def update(self, churn_cap, obj_cap=None, wide_ids=False, check=True):
+        """Both packages advance one frame.  The port must equal a fresh
+        build, aux included, and JAX on keys, ids, count and flags; on
+        aux too except with ``wide_ids``, where JAX zeroes it
+        (``broadphase_tpu/update.py:191-195``).  With ``wide_ids`` the
+        emission-order pairs are compared with the fresh build's too."""
         args = (self.smin, self.smax, self.bmin, self.bmax)
         self.jt = jup.update(self.spec, self.jt, *args, churn_cap,
                              obj_cap=obj_cap, wide_ids=wide_ids)
@@ -67,7 +72,7 @@ class _Pair:
         assert bool(self.tt.state.overflow) == bool(self.jt.state.overflow)
         if check:
             _assert_tree_equal(self.spec, self.tspec, self.jt.state,
-                               self.tt.state)
+                               self.tt.state, aux=not wide_ids)
             fresh = tl.build(self.tspec, self.smin, self.smax, self.bmin,
                              self.bmax, self.ids, out_capacity=self.cap,
                              device="cpu")
@@ -76,6 +81,16 @@ class _Pair:
             assert torch.equal(self.tt.state.aux[:cnt], fresh.aux[:cnt])
             assert int(self.tt.state.invalid_count) == \
                 int(fresh.invalid_count)
+            if wide_ids:
+                pair_cap = 64 * len(self.ids)
+                _, got = tl.scan(self.tspec, self.tt.state, pair_cap,
+                                 canonical=False)
+                _, want = tl.scan(self.tspec, fresh, pair_cap,
+                                  canonical=False)
+                assert not bool(want.overflow)
+                np.testing.assert_array_equal(
+                    tl.scan_result_to_numpy(got),
+                    tl.scan_result_to_numpy(want))
         return self.tt.state
 
 
@@ -131,6 +146,79 @@ def test_wide_ids(name):
     assert bool(p.update(n * p.spec.fanout, check=False).overflow)
     p.jt, p.tt = jt0, tt0
     assert not bool(p.update(n * p.spec.fanout, wide_ids=True).overflow)
+
+
+@pytest.mark.parametrize("offset", [0, 1 << 28])
+@pytest.mark.parametrize("name", ["Index64_3D", "Index32_2D"])
+def test_wide_ids_keep_aux(name, offset):
+    """Below 2^29 - 1 a fresh build keeps the aux bits, and so does the
+    wide-ids update: with ids from 0 the emit-once rule stays on, so the
+    emission-order pairs are the fresh build's too."""
+    n = 200
+    ids = np.arange(n, dtype=np.uint32) + np.uint32(offset)
+    p = _Pair(name, n, seed=65, ids=ids)
+    for _ in range(2):
+        p.move(0.3, 10.0)
+        state = p.update(n * p.spec.fanout, wide_ids=True)
+        assert not bool(state.overflow)
+        assert bool(torch.any(state.aux != 0))
+
+
+def _crossing_frames(p, big):
+    """Object ``big`` (id >= 2^29 - 1) leaves the system box, then enters
+    it again: the largest live id crosses 2^29 - 1 down, then up."""
+    n = len(p.ids)
+    masked = []
+    for shift in (500.0, -500.0):
+        p.move(0.3, 5.0)
+        p.bmin[big] += shift
+        p.bmax[big] += shift
+        state = p.update(n * p.spec.fanout, wide_ids=True)
+        assert not bool(state.overflow)
+        masked.append(not bool(torch.any(state.aux != 0)))
+    assert masked == [False, True]
+
+
+def test_wide_ids_across_the_aux_bound():
+    """ids from 0 and one id of 2^29 + 7: a fresh build drops aux only
+    while that object is in the system; the update follows it both
+    ways."""
+    n = 200
+    ids = np.arange(n, dtype=np.uint32)
+    ids[17] = (1 << 29) + 7
+    p = _Pair("Index64_3D", n, seed=69, ids=ids)
+    assert not bool(torch.any(p.tt.state.aux != 0))
+    _crossing_frames(p, 17)
+
+
+def test_run_from_jax_wide_tracked_scene():
+    """A JAX wide-ids tracked scene (its update zeroes aux) carried across
+    with ``convert``: the port recomputes the tree's aux from the
+    signature, and its updates equal a fresh build, aux included."""
+    n = 200
+    ids = np.arange(n, dtype=np.uint32)
+    ids[23] = (1 << 29) + 3
+    p = _Pair("Index64_3D", n, seed=71, ids=ids)
+    p.move(0.3, 10.0)
+    p.update(n * 8, wide_ids=True)
+    p.bmin[23] -= 500.0
+    p.bmax[23] -= 500.0
+    p.update(n * 8, wide_ids=True)
+    assert not np.any(np.asarray(p.jt.state.aux) != 0)
+    assert bool(torch.any(p.tt.state.aux != 0))
+    jt = p.jt
+    fields = {"state": _jax_fields(p.spec, jt.state),
+              **{f: np.asarray(getattr(jt, f)) for f in
+                 ("ids", "bounds_min", "bounds_max", "sig_depth",
+                  "sig_tmin", "sig_tmax", "sig_contained")}}
+    want = p.tt.tree_aux
+    p.tt = convert.tracked_scene_from_jax(p.tspec, fields, "cpu")
+    assert torch.equal(p.tt.tree_aux, want)
+    p.bmin[23] += 500.0
+    p.bmax[23] += 500.0
+    for _ in range(2):
+        p.move(0.3, 10.0)
+        assert not bool(p.update(n * 8, wide_ids=True).overflow)
 
 
 def test_run_from_jax_tracked_scene():
