@@ -1,4 +1,5 @@
-"""broadphase_tpu_torch: the broadphase build, scan and temporal-coherence
+"""broadphase_tpu_torch: the broadphase layer (build, extend, merge, sort,
+scan), its linear point and region queries and the temporal-coherence
 update on PyTorch and CUDA.
 
 A port of ``broadphase_tpu`` (JAX on a TPU), which stays beside it as the
@@ -10,14 +11,17 @@ imports neither JAX nor ``broadphase_tpu``.
 """
 
 from .index import ALL_SPECS, Index32_2D, Index64_2D, Index64_3D, IndexSpec
-from .layer import (LayerBuilder, LayerState, ScanResult, build,
-                    capacity_of, layers_equal, make_layer, scan, sort)
-from . import update  # the module, as in broadphase_tpu: update.update
+from .layer import (LayerBuilder, LayerState, ScanResult, TestResult, build,
+                    capacity_of, clear, extend, layers_equal, make_layer,
+                    merge, scan, scan_auto, scan_filtered, sort)
+# the modules, as in broadphase_tpu: update.update, query.pick_ray
+from . import query, scene, update
 from .update import TrackedScene, build_tracked
 
 __all__ = [
     "ALL_SPECS", "Index32_2D", "Index64_2D", "Index64_3D", "IndexSpec",
-    "LayerBuilder", "LayerState", "ScanResult", "TrackedScene", "build",
-    "build_tracked", "capacity_of", "layers_equal", "make_layer", "scan",
-    "sort", "update",
+    "LayerBuilder", "LayerState", "ScanResult", "TestResult",
+    "TrackedScene", "build", "build_tracked", "capacity_of", "clear",
+    "extend", "layers_equal", "make_layer", "merge", "query", "scan",
+    "scan_auto", "scan_filtered", "scene", "sort", "update",
 ]

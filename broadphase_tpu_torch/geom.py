@@ -9,7 +9,9 @@ there, so results are bit-identical.
 operations in the same order (subtract, divide, multiply, clip, NaN to 0,
 truncate) and must never be rewritten with a reciprocal or handed to
 ``torch.compile``: a last-ulp change moves boxes into other cells (the JAX
-package recorded 35 phantom pairs at 1M from such a rewrite).
+package recorded 35 phantom pairs at 1M from such a rewrite).  The
+queries' replay of the reference's cell halving (:func:`cell_bounds_f32`)
+is the other, under the same rule.
 """
 
 from __future__ import annotations
@@ -22,6 +24,11 @@ from .index import IndexSpec, U32_MASK, clz32, encode_axis
 
 RANGE_MAX_U32 = 0xFFFF_FF00
 RANGE_MAX_F32 = 4294967040.0
+
+
+def bounds_overlaps(amin, amax, bmin, bmax) -> torch.Tensor:
+    """Inclusive AABB overlap test, per object (``broadphase_tpu.geom``)."""
+    return torch.all((amin <= bmax) & (amax >= bmin), dim=-1)
 
 
 def bounds_contains(amin, amax, bmin, bmax) -> torch.Tensor:
@@ -114,3 +121,85 @@ def emit_cells(spec: IndexSpec, lmin: torch.Tensor, lmax: torch.Tensor,
     # depth 0 emits the single whole-system cell, key 0
     keys = torch.where(depth[:, None] == 0, 0, keys)
     return keys, valid, overflow
+
+
+def replay_levels(spec: IndexSpec, replay: torch.Tensor) -> int:
+    """Levels a replay must run: the largest replay depth of a valid key
+    (depth field at most ``axis_bits``), read on the host; 0 when none."""
+    valid = torch.where(replay <= spec.axis_bits, replay, 0)
+    return int(valid.max()) if valid.numel() else 0
+
+
+# Levels of the halving tree that a replay tabulates.  A cell's bounds are
+# a function of its depth and the top ``depth`` bits of each coordinate,
+# so the halving runs once per tree node (2^d nodes at level d) and each
+# element gathers its node's; an element deeper than this goes on element
+# by element from its node at this level.
+TABLE_LEVELS = 16
+
+
+def halving_nodes(system_min, system_max, levels: int, device):
+    """The f32 (lo, hi) of every cell of the system box's halving tree down
+    to ``levels``: ((2 << levels) - 1, dim) each, on ``device``.  The cell
+    of depth d whose coordinate's top d bits are p on an axis is row
+    ``(1 << d) - 1 + p`` of that axis's column: a child keeps its parent's
+    lo and takes the center as hi on side 0, the reverse on side 1.  The
+    table is small and built on the host (IEEE f32 operations give the
+    card's values), which saves the card a launch per operation."""
+    lo = torch.as_tensor(system_min, dtype=torch.float32).cpu()[None, :]
+    hi = torch.as_tensor(system_max, dtype=torch.float32).cpu()[None, :]
+    los, his = [lo], [hi]
+    for _ in range(levels):
+        half = (hi - lo) * 0.5
+        center = lo + half
+        lo = torch.stack([lo, center], dim=1).flatten(0, 1)
+        hi = torch.stack([center, hi], dim=1).flatten(0, 1)
+        los.append(lo)
+        his.append(hi)
+    return torch.cat(los).to(device), torch.cat(his).to(device)
+
+
+def node_rows(origin: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """(N, dim) rows of :func:`halving_nodes` of each element's cell at
+    ``depth`` (N,): its top ``depth`` coordinate bits on each axis."""
+    d = depth[:, None]
+    return (1 << d) - 1 + (origin >> (32 - d))
+
+
+def cell_bounds_f32(spec: IndexSpec, origin_axes, depth, system_min,
+                    system_max, replay_depth=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 bounds of each element's cell, cut at ``replay_depth``
+    (``broadphase_tpu.geom.cell_bounds_f32``).
+
+    The reference's queries halve the system box level by level, which is
+    not the same f32 value as interpolating directly, so the halving is
+    replayed, driven by each cell's origin bits: on the nodes of the
+    halving tree down to :data:`TABLE_LEVELS` (:func:`halving_nodes`,
+    gathered per element), then element by element below that.  Both run
+    the same f32 operations on the same values.  ``lo + (hi - lo) * 0.5``
+    is three separate tensor operations, never a fused multiply-add,
+    ``addcmul`` or ``torch.compile``: the rounding decides which cells a
+    query hits.  origin_axes: dim (N,) u32 in int64 (top-aligned); depth:
+    (N,) integers.  Returns (cell_min, cell_max): (N, dim) f32.
+
+    The halving runs to the deepest replay depth of a valid key (one read
+    on the host): the levels below it change no valid key's cell.  Depth
+    fields past ``axis_bits`` (pads) stop there too; callers mask them."""
+    replay = depth.to(torch.int64)
+    if replay_depth is not None:
+        replay = replay.clamp(max=int(replay_depth))
+    origin = torch.stack(list(origin_axes), dim=-1)            # (N, dim)
+    levels = replay_levels(spec, replay)
+    cut = min(levels, TABLE_LEVELS)
+    lo_t, hi_t = halving_nodes(system_min, system_max, cut, origin.device)
+    rows = node_rows(origin, replay.clamp(max=cut))
+    lo, hi = torch.gather(lo_t, 0, rows), torch.gather(hi_t, 0, rows)
+    for b in range(cut, levels):
+        active = (replay > b)[:, None]                         # (N, 1)
+        half = (hi - lo) * 0.5
+        center = lo + half
+        side = ((origin >> (31 - b)) & 1) == 1
+        lo = torch.where(active & side, center, lo)
+        hi = torch.where(active & ~side, center, hi)
+    return lo, hi

@@ -281,3 +281,45 @@ def keys_to_numpy(spec: IndexSpec, key: torch.Tensor) -> np.ndarray:
         return cols[0]
     return ((cols[0].astype(np.uint64) << np.uint64(32))
             | cols[1].astype(np.uint64))
+
+
+def keys_from_numpy(spec: IndexSpec, arr, device=None) -> torch.Tensor:
+    """Inverse of :func:`keys_to_numpy` (``broadphase_tpu.index.
+    keys_from_numpy``): int64 keys on ``device`` from uint64 (uint32 for
+    Index32_2D) values; all-ones pads become ``PAD_KEY``."""
+    if spec.bits == 32:
+        return key_from_columns(spec, (np.asarray(arr, np.uint32),), device)
+    arr = np.asarray(arr, np.uint64)
+    return key_from_columns(spec, ((arr >> np.uint64(32)).astype(np.uint32),
+                                   (arr & np.uint64(U32_MASK)).astype(
+                                       np.uint32)), device)
+
+
+# ---------------------------------------------------------------------------
+# Debug formatters (reference impl Debug, src/index.rs:297-335)
+# ---------------------------------------------------------------------------
+
+def format_key(spec: IndexSpec, key_value: int) -> str:
+    """One packed key as text: per-axis origin in octal and the depth, e.g.
+    ``Index64_3D{origin: (0o0017..., 0o0044..., 0o0021...), depth: 5}``
+    (``broadphase_tpu.index.format_key``)."""
+    depth = key_value & spec.depth_mask
+    morton = (key_value & spec.origin_mask) >> spec.origin_shift
+    axes = []
+    for axis in range(spec.dim):
+        v = 0
+        for i in range(spec.axis_bits):
+            if (morton >> (spec.dim * i + axis)) & 1:
+                v |= 1 << i
+        v <<= 32 - spec.axis_bits
+        axes.append(f"0o{v:011o}")
+    return f"{spec.name}{{origin: ({', '.join(axes)}), depth: {depth}}}"
+
+
+def format_keys(spec: IndexSpec, keys) -> List[str]:
+    """:func:`format_key` of each key of an int64 tensor (read through
+    :func:`keys_to_numpy`, so a pad reads as all ones) or of a numpy array
+    of the host view."""
+    if isinstance(keys, torch.Tensor):
+        keys = keys_to_numpy(spec, keys)
+    return [format_key(spec, int(k)) for k in np.asarray(keys)]

@@ -44,8 +44,9 @@ import torch
 
 from . import geom
 from .index import IndexSpec, PAD_KEY, U32_MASK, origin_of
-from .layer import (PAD_ID, LayerState, _build, _host, capacity_of,
-                    mask_aux, resolve_device)
+from .layer import (PAD_ID, LayerState, _build, _host, _merge_cols,
+                    _pack_meta, _unpack_meta, capacity_of, mask_aux,
+                    resolve_device)
 from .ops.compact import stream_compact
 from .ops.merge import merge_cancel_compact, to_length
 
@@ -158,11 +159,6 @@ def _emit_rows(spec: IndexSpec, system_min, system_max, bmin_rows,
     return keys, valid & contained[:, None]
 
 
-def _pack_meta(dim: int, ids, aux, tag: int):
-    """(id, aux, tag) -> one int64, monotone in (id, aux, tag)."""
-    return (ids << (dim + 1)) | (aux << 1) | tag
-
-
 def _churn_stream(spec: IndexSpec, ids_rows, aux_row, key_rows, valid_rows,
                   tag: int):
     """One churn side as flat (key, meta) columns and its keep mask;
@@ -179,22 +175,7 @@ def _churn_stream(spec: IndexSpec, ids_rows, aux_row, key_rows, valid_rows,
 def _tree_merge_cols(spec: IndexSpec, tracked: TrackedScene):
     """The sorted tree as merge columns (tag 0), with its aux before the
     wide-id mask; pads stay ``PAD_KEY``."""
-    state = tracked.state
-    live = state.ids != PAD_ID
-    meta = torch.where(live, _pack_meta(spec.dim, state.ids,
-                                        tracked.tree_aux.to(torch.int64), 0),
-                       PAD_KEY)
-    return state.keys, meta
-
-
-def _unpack_meta(spec: IndexSpec, meta, cap: int, new_count):
-    """(ids, aux) of the merged output's live prefix."""
-    dim = spec.dim
-    lane = torch.arange(cap, dtype=torch.int64, device=meta.device)
-    live = lane < new_count.clamp(max=cap)
-    ids = torch.where(live, meta >> (dim + 1), PAD_ID)
-    aux = torch.where(live, (meta >> 1) & ((1 << dim) - 1), 0)
-    return ids, aux.to(torch.int32)
+    return _merge_cols(spec, tracked.state._replace(aux=tracked.tree_aux))
 
 
 class _Churn(NamedTuple):

@@ -5,7 +5,12 @@ slot, also when the tree overflows; kernel 7 on both of its entry points),
 drives the build + scan step at 30k and 1M boxes against the C++ oracle,
 the v2 scan at 1M, and the temporal-coherence update path at 1M boxes and
 four churn fractions (and a wide-ids frame) against a fresh build, aux
-bits included, and the oracle.
+bits included, and the oracle.  Then the rest of the layer surface and
+the linear queries: the static + dynamic merge (kernel 6) and clear +
+extend (kernel 1) at 1M against the fresh build, scan_filtered at 1M and
+nested_ids at 100k against the oracle, scan_auto at 30k, a BR_SCENE round
+trip at 1M, box, ray and pick queries at 1M and the ball pit's frame
+against the CPU path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -25,13 +30,16 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from broadphase_tpu_torch import (Index32_2D, Index64_2D, Index64_3D,
-                                  bench_caps, geom, layer)
+                                  bench_caps, geom, layer, query)
+from broadphase_tpu_torch import scene as br_scene
 from broadphase_tpu_torch import oracle as native
 from broadphase_tpu_torch import update as upd
 from broadphase_tpu_torch.index import PAD_KEY, depth_of
@@ -1127,8 +1135,445 @@ def update_sweep(scene_big, dev, tree_cap, pair_cap, emit_cap):
     return results, frame_launches, merge_args
 
 
+# ---------------------------------------------------------------------------
+# The rest of the layer surface and the linear queries
+# ---------------------------------------------------------------------------
+
+def p50(walls) -> float:
+    return float(np.percentile(walls, 50))
+
+
+def to_cpu(state):
+    """A layer state's tensors on the CPU (the host flags already are)."""
+    return layer.LayerState(*(t.cpu() for t in state))
+
+
+def profile_line(label, run, p50_ms) -> dict:
+    """Print the device profile of run() by layer; return it."""
+    layers, ops = device_ms_by_layer(run)
+    busy = sum(layers.values())
+    print(f"profile {label}: device busy {busy:.3f} ms of the {p50_ms:.3f} "
+          f"ms p50 (idle share {1 - busy / p50_ms:.3f}), {ops:.0f} device "
+          "operations; " + ", ".join(
+              f"{k} {v:.3f}" for k, v in
+              sorted(layers.items(), key=lambda kv: -kv[1])))
+    return layers
+
+
+def merge_phase(scene_big, dev, tree_cap, pair_cap, emit_cap, fresh, want):
+    """The static + dynamic pattern at 1M: 900k objects built once, 100k
+    built each frame, merged (kernel 6) and scanned; the merged tree equals
+    the fresh build and its pairs the oracle's.  Timed against the append
+    path + layer.sort on the same inputs; an undersized state against the
+    CPU path.  Returns (the merge's launches, its times)."""
+    smin_t, smax_t, bmin_t, bmax_t, ids_t = to_device(scene_big, dev)
+    split = 9 * len(ids_t) // 10
+    static = layer.build(SPEC, smin_t, smax_t, bmin_t[:split],
+                         bmax_t[:split], ids_t[:split],
+                         out_capacity=tree_cap)
+    dynamic = layer.build(SPEC, smin_t, smax_t, bmin_t[split:],
+                          bmax_t[split:], ids_t[split:])
+    reset_launches()
+    merged = layer.merge(SPEC, static, dynamic)
+    launches = read_launches()
+    check(launches["merge_cancel_compact"] == 1
+          and sum(launches.values()) == 1,
+          f"merge 1M: not one launch of kernel 6 alone: {launches}")
+    check(bool(merged.sorted) and states_equal(merged, fresh),
+          "merge 1M: the merged tree differs from the fresh build")
+    _, res = layer.scan(SPEC, merged, pair_cap, emit_capacity=emit_cap)
+    got = layer.scan_result_to_numpy(res)
+    check(not bool(res.overflow) and np.array_equal(got, want),
+          f"merge 1M: {got.shape[0]} canonical pairs of the merged tree "
+          f"differ from the oracle's {want.shape[0]}")
+
+    unsorted = static._replace(sorted=torch.tensor(False))
+
+    def append_sort():
+        return layer.sort(SPEC, layer.merge(SPEC, unsorted, dynamic))
+
+    check(states_equal(append_sort(), fresh),
+          "merge 1M: append + sort differs from the fresh build")
+    for _ in range(3):
+        layer.merge(SPEC, static, dynamic)
+        append_sort()
+    m_ms = p50(host_ms(lambda: layer.merge(SPEC, static, dynamic), 20))
+    a_ms = p50(host_ms(append_sort, 20))
+    moved = 16 * (tree_cap + dynamic.ids.shape[0]) + 16 * tree_cap
+    bound_ms, _ = bound(moved)
+    print(f"merge 1M (900k static + 100k dynamic, kernel 6): the merged "
+          f"tree equals the fresh build (keys, ids, aux, count "
+          f"{int(merged.count)}, flags) and its {want.shape[0]} canonical "
+          f"pairs the oracle's; launches {launches}; merge p50 {m_ms:.3f} "
+          f"ms, append + layer.sort p50 {a_ms:.3f} ms (20 each); k6 bound "
+          f"{bound_ms:.3f} ms ({moved / 1e6:.1f} MB)")
+    layers = profile_line("merge 1M", lambda: layer.merge(SPEC, static,
+                                                          dynamic), m_ms)
+    check("torch.sort" not in layers, "merge 1M: the sorted merge sorted")
+    profile_line("append + sort 1M", append_sort, a_ms)
+
+    # a state whose capacity is below the sum: count and overflow as the
+    # CPU path (the plain version of kernel 6) has them
+    small_cap = int(static.count) + int(dynamic.count) // 4
+    small = layer.build(SPEC, smin_t, smax_t, bmin_t[:split], bmax_t[:split],
+                        ids_t[:split], out_capacity=small_cap)
+    over = layer.merge(SPEC, small, dynamic)
+    want_over = layer.merge(SPEC, to_cpu(small), to_cpu(dynamic))
+    check(bool(over.overflow) and int(over.count) == small_cap
+          and states_equal(to_cpu(over), want_over),
+          "merge 1M into fewer slots: differs from the CPU path")
+    print(f"merge 1M into {small_cap} slots ({int(small.count)} + "
+          f"{int(dynamic.count)} cells): count and overflow set, equal to "
+          "the CPU path slot for slot")
+    return launches, {"merge_p50": m_ms, "append_sort_p50": a_ms,
+                      "bound": bound_ms}
+
+
+def extend_phase(scene_big, dev, fresh):
+    """clear + 10 extends of 100k objects (kernel 1) equal the CPU path
+    slot for slot before the sort, and the fresh 1M build after it; a 10k
+    extend into the 1M tree timed.  Returns (the launches of the 10, the
+    10k extend's time)."""
+    smin, smax, bmin, bmax, ids = scene_big
+    smin_t, smax_t, bmin_t, bmax_t, ids_t = to_device(scene_big, dev)
+    step_n = len(ids) // 10
+    batches = [(i * step_n, (i + 1) * step_n) for i in range(10)]
+    reset_launches()
+    st = layer.clear(fresh)
+    for lo, hi in batches:
+        st = layer.extend(SPEC, st, smin_t, smax_t, bmin_t[lo:hi],
+                          bmax_t[lo:hi], ids_t[lo:hi])
+    launches = read_launches()
+    check(launches["emit_build"] == 10, f"extend 1M: launches {launches}")
+    cpu = layer.clear(to_cpu(fresh))
+    for lo, hi in batches:
+        cpu = layer.extend(SPEC, cpu, smin, smax, bmin[lo:hi], bmax[lo:hi],
+                           ids[lo:hi])
+    check(not bool(st.sorted) and states_equal(to_cpu(st), cpu),
+          "extend 1M: the unsorted tree differs from the CPU path")
+    check(states_equal(layer.sort(SPEC, st), fresh),
+          "extend 1M: clear + extend + sort differs from the fresh build")
+    extra = bench_caps.bench_scene(3, 10_000, seed=1)
+    x_t = to_device(extra[:4] + (extra[4] + np.uint32(1_000_000),), dev)
+
+    def extend_10k():
+        return layer.extend(SPEC, fresh, smin_t, smax_t, *x_t[2:])
+
+    grown = extend_10k()
+    check(not bool(grown.overflow) and not bool(grown.sorted),
+          "extend 10k into 1M: overflow or still sorted")
+    for _ in range(3):
+        extend_10k()
+    e_ms = p50(host_ms(extend_10k, 20))
+    print(f"extend 1M: clear + 10 x 100k extends (launches {launches}) "
+          f"equal the CPU path slot for slot, and after sort the fresh "
+          f"build (keys, ids, aux, count {int(st.count)}, invalid_count, "
+          f"overflow); a 10k-object extend into the 1M tree "
+          f"(+{int(grown.count) - int(fresh.count)} cells) p50 {e_ms:.3f} "
+          "ms (20)")
+    profile_line("extend 10k into 1M", extend_10k, e_ms)
+    return launches, {"extend_10k_p50": e_ms}
+
+
+def filter_ids(a, b):
+    """The smoke's collision-group predicate on id columns."""
+    return (a + b) % 3 != 0
+
+
+def filtered_phase(state, pair_cap, emit_cap, want):
+    """scan_filtered at 1M against the oracle's pairs filtered in numpy,
+    canonical and as a set; timed beside the unfiltered scan.  Returns (its
+    launches, both times)."""
+    want_f = want[(want[:, 0].astype(np.int64) + want[:, 1]) % 3 != 0]
+    reset_launches()
+    _, res = layer.scan_filtered(SPEC, state, pair_cap, filter_ids,
+                                 emit_capacity=emit_cap)
+    launches = read_launches()
+    got = layer.scan_result_to_numpy(res)
+    check(not bool(res.overflow) and np.array_equal(got, want_f),
+          f"scan_filtered 1M: {got.shape[0]} pairs differ from the oracle's "
+          f"{want_f.shape[0]}")
+    _, ures = layer.scan_filtered(SPEC, state, pair_cap, filter_ids,
+                                  emit_capacity=emit_cap, canonical=False)
+    ugot = layer.scan_result_to_numpy(ures)
+    ugot = ugot[np.lexsort((ugot[:, 1], ugot[:, 0]))]
+    check(np.array_equal(ugot, want_f),
+          "scan_filtered 1M canonical=False: the set differs")
+
+    def filtered():
+        return layer.scan_filtered(SPEC, state, pair_cap, filter_ids,
+                                   emit_capacity=emit_cap)
+
+    def plain():
+        return layer.scan(SPEC, state, pair_cap, emit_capacity=emit_cap)
+
+    for _ in range(3):
+        filtered()
+        plain()
+    f_ms, s_ms = p50(host_ms(filtered, 20)), p50(host_ms(plain, 20))
+    print(f"scan_filtered 1M ((a + b) % 3 != 0): {want_f.shape[0]} "
+          f"canonical pairs equal the oracle's, filtered in numpy, and the "
+          f"canonical=False set; launches {launches}; scan p50 filtered "
+          f"{f_ms:.3f} ms, unfiltered {s_ms:.3f} ms (20 each)")
+    return launches, {"filtered_scan_p50": f_ms, "scan_p50": s_ms}
+
+
+def nested_phase(dev):
+    """nested_ids at 100k objects, each id again at a larger concentric
+    box, against the C++ oracle (its sweep skips an id already on the
+    stack)."""
+    smin, smax, bmin, bmax, ids = bench_caps.bench_scene(3, 100_000)
+    pad = 2.0
+    scene = (smin, smax,
+             np.concatenate([bmin, np.maximum(bmin - pad, smin + 1.0)])
+             .astype(np.float32),
+             np.concatenate([bmax, np.minimum(bmax + pad, smax - 1.0)])
+             .astype(np.float32),
+             np.concatenate([ids, ids]))
+    n = len(scene[4])
+    state = layer.build(SPEC, *to_device(scene, dev))
+    _, _, want = oracle(native, scene)
+    reset_launches()
+    _, res = layer.scan(SPEC, state, 32 * n, nested_ids=True)
+    launches = read_launches()
+    got = layer.scan_result_to_numpy(res)
+    check(not bool(res.overflow) and np.array_equal(got, want),
+          f"nested_ids 100k: {got.shape[0]} pairs differ from the oracle's "
+          f"{want.shape[0]}")
+    _, res_plain = layer.scan(SPEC, state, 32 * n)
+    check(not np.array_equal(layer.scan_result_to_numpy(res_plain), want),
+          "nested_ids 100k: the skip never fired")
+    print(f"nested_ids 100k (x2 ids, concentric): {want.shape[0]} canonical "
+          f"pairs equal the oracle's; without the skip the list differs; "
+          f"launches {launches}")
+    return launches
+
+
+def scan_auto_phase(dev):
+    """scan_auto from 1024 slots at 30k grows until no overflow and equals
+    scan at a generous capacity."""
+    n = 30_000
+    scene = bench_caps.bench_scene(3, n)
+    state = layer.build(SPEC, *to_device(scene, dev), out_capacity=4 * n)
+    reset_launches()
+    _, res = layer.scan_auto(SPEC, state, initial_capacity=1024)
+    launches = read_launches()
+    _, ref = layer.scan(SPEC, state, 10 * n, emit_capacity=16 * n)
+    cap = res.pairs_a.shape[0]
+    check(not bool(res.overflow) and cap > 1024 and np.array_equal(
+        layer.scan_result_to_numpy(res), layer.scan_result_to_numpy(ref)),
+          "scan_auto 30k: differs from scan at a generous capacity")
+    print(f"scan_auto 30k: grew 1024 -> {cap} slots; its {int(res.count)} "
+          f"pairs equal scan at 10n; launches {launches}")
+    return launches
+
+
+def scene_phase(scene_big, dev, tree_cap, pair_cap, emit_cap, fresh, want):
+    """BR_SCENE at 1M: layer_to_scene_layer -> save -> load ->
+    layer_from_scene_layer gives back the tree and the build's aux, and
+    the same pairs."""
+    smin, smax, bmin, bmax, ids = scene_big
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "scene_1m.br"
+        t0 = time.perf_counter()
+        br_scene.save(path, br_scene.Scene(
+            smin, smax, bmin, bmax, ids,
+            layer.layer_to_scene_layer(SPEC, fresh)))
+        t1 = time.perf_counter()
+        reset_launches()
+        restored = layer.layer_from_scene_layer(
+            SPEC, br_scene.load(path).layer, capacity=tree_cap, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = path.stat().st_size
+    check(states_equal(restored, fresh),
+          "BR_SCENE 1M: the restored layer differs from the build")
+    _, res = layer.scan(SPEC, restored, pair_cap, emit_capacity=emit_cap)
+    launches = read_launches()
+    check(not bool(res.overflow) and np.array_equal(
+        layer.scan_result_to_numpy(res), want),
+          "BR_SCENE 1M: the restored layer's pairs differ")
+    print(f"BR_SCENE 1M: save {1e3 * (t1 - t0):.0f} ms ({size / 1e6:.1f} "
+          f"MB), load + restore {1e3 * (t2 - t1):.0f} ms; keys, ids, count "
+          f"and the build's aux back, and {want.shape[0]} pairs; launches "
+          f"(restore + scan) {launches}")
+    return launches
+
+
+def ray_sphere(ids, mask, centers, radii, ro, dn):
+    """Exact ray-sphere distance of each slot's object, inf on a miss; the
+    sums are written out, so that every device adds in one order."""
+    i = torch.where(mask, ids, 0)
+    c = centers[i] - ro
+    t = c[:, 0] * dn[0] + c[:, 1] * dn[1] + c[:, 2] * dn[2]
+    d2 = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2] - t * t
+    r = radii[i]
+    r2 = r * r
+    root = torch.sqrt(torch.clamp(r2 - d2, min=0.0))
+    hit = (d2 <= r2) & (t + root >= 0)
+    return torch.where(hit, t - root, torch.inf)
+
+
+def same_hits(a, b) -> bool:
+    return (int(a.count) == int(b.count) and bool(a.overflow) == bool(
+        b.overflow) and torch.equal(a.ids.cpu(), b.ids.cpu()))
+
+
+def same_pick(a, b) -> bool:
+    return (bool(a.found) == bool(b.found) and int(a.obj_id) == int(b.obj_id)
+            and torch.equal(a.distance.cpu(), b.distance.cpu()))
+
+
+def query_phase(scene_big, dev, fresh):
+    """32 boxes, 32 rays and 8 ray picks on the 1M tree, each equal to the
+    CPU path on the same tree.  Returns (their launches, the p50 per query
+    of each kind on the card)."""
+    smin, smax, bmin, bmax, ids = scene_big
+    cpu = to_cpu(fresh)
+    rng = np.random.default_rng(21)
+    ext = smax - smin
+    boxes = []
+    for _ in range(32):
+        lo = (smin + rng.uniform(0, 1, 3) * (ext - 30)).astype(np.float32)
+        boxes.append((lo, (lo + rng.uniform(1, 30, 3)).astype(np.float32)))
+    rays = []
+    for k in range(32):
+        d = rng.normal(size=3).astype(np.float32)
+        if k % 8 == 3:
+            d[k % 3] = 0.0                       # axis-parallel
+        if k % 8 == 7:
+            d = np.zeros(3, np.float32)
+            d[k % 3] = -1.0                      # axis-aligned
+        rays.append(((smin + rng.uniform(0, 1, 3) * ext).astype(np.float32),
+                     d))
+    centers = ((bmin + bmax) / 2.0).astype(np.float32)
+    radii = (np.min(bmax - bmin, axis=1) / 2.0).astype(np.float32)
+    picks = []
+    for _ in range(8):
+        ro = (smin + rng.uniform(0, 1, 3) * ext).astype(np.float32)
+        d = (centers[rng.integers(len(ids))] - ro).astype(np.float32)
+        picks.append((ro, d, (d / np.linalg.norm(d)).astype(np.float32)))
+    on = {dv.type: (torch.as_tensor(centers, device=dv),
+                    torch.as_tensor(radii, device=dv))
+          for dv in (dev, torch.device("cpu"))}
+    cap = 1 << 16
+
+    def box(st, q):
+        return query.test_box(SPEC, st, smin, smax, q, cap)[1]
+
+    def ray(st, q):
+        return query.test_ray(SPEC, st, smin, smax, q[0], q[1], 0.0, np.inf,
+                              cap)[1]
+
+    def pick(st, q):
+        dv = st.ids.device
+        args = on[dv.type] + (torch.as_tensor(q[0], device=dv),
+                              torch.as_tensor(q[2], device=dv))
+        return query.pick_ray(SPEC, st, smin, smax, q[0], q[1], 1e9,
+                              ray_sphere, args)[1]
+
+    reset_launches()
+    results = {name: [fn(fresh, q) for q in qs] for name, fn, qs in (
+        ("box", box, boxes), ("ray", ray, rays), ("pick", pick, picks))}
+    launches = read_launches()
+    summary = {}
+    for name, fn, qs, same in (("box", box, boxes, same_hits),
+                               ("ray", ray, rays, same_hits),
+                               ("pick", pick, picks, same_pick)):
+        for i, (q, got) in enumerate(zip(qs, results[name])):
+            check(same(got, fn(cpu, q)),
+                  f"query 1M: {name} {i} differs from the CPU path")
+        fn(fresh, qs[0])
+        walls = []
+        for q in qs:
+            walls += host_ms(lambda: fn(fresh, q), 1)
+        summary[name] = p50(walls)
+    hits = [int(r.count) for r in results["box"] + results["ray"]]
+    found = sum(bool(r.found) for r in results["pick"])
+    check(not any(bool(r.overflow) for r in results["box"] + results["ray"]),
+          "query 1M: a result buffer overflowed")
+    print(f"queries 1M: 32 boxes, 32 rays (8 axis-parallel or -aligned) and "
+          f"8 ray-sphere picks ({found} found) equal the CPU path (ids, "
+          f"counts, flags; pick id and f32 distance); hits per box/ray "
+          f"{min(hits)}-{max(hits)}; p50 per query on the card: test_box "
+          f"{summary['box']:.3f} ms, test_ray {summary['ray']:.3f} ms, "
+          f"pick_ray {summary['pick']:.3f} ms; launches {launches}")
+    profile_line("test_ray 1M", lambda: ray(fresh, rays[0]), summary["ray"])
+    return launches, summary
+
+
+def ray_circle(ids, mask, pos, radius, origin, dirn):
+    """The ball pit's exact ray-circle narrow phase
+    (examples/ball_pit.py:66-74), its sums written out."""
+    i = torch.where(mask, ids, 0)
+    c = pos[i] - origin
+    t = c[:, 0] * dirn[0] + c[:, 1] * dirn[1]
+    d2 = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] - t * t
+    r = radius[i]
+    r2 = r * r
+    root = torch.sqrt(torch.clamp(r2 - d2, min=0.0))
+    hit = (d2 <= r2) & (t + root >= 0)
+    return torch.where(hit, t - root, torch.inf)
+
+
+def ball_pit_phase(dev):
+    """The ball pit's frame (examples/ball_pit.py): Index32_2D, min_depth
+    4, 2,500 balls; build -> pick_ray (ray-circle) -> scan, equal to the
+    CPU path at four ray angles; the frame timed on the card."""
+    n = 2500
+    rng = np.random.default_rng(0)
+    radius = rng.uniform(0.004, 0.01, n).astype(np.float32)
+    pos = rng.uniform(0.05, 0.95, (n, 2)).astype(np.float32)
+    smin, smax = np.zeros(2, np.float32), np.ones(2, np.float32)
+    bmin, bmax = pos - radius[:, None], pos + radius[:, None]
+    ids = np.arange(n, dtype=np.uint32)
+    pair_cap = -(-32 * n // 1024) * 1024
+    origin = np.array([0.5, 1.0], np.float32)
+
+    def frame(dv, ray_dir):
+        t = {k: torch.as_tensor(v, device=dv) for k, v in dict(
+            bmin=bmin, bmax=bmax, ids=ids.astype(np.int64), pos=pos,
+            radius=radius, origin=origin,
+            dirn=(ray_dir / np.linalg.norm(ray_dir)).astype(
+                np.float32)).items()}
+        st = layer.build(Index32_2D, smin, smax, t["bmin"], t["bmax"],
+                         t["ids"], min_depth=4)
+        st, hit = query.pick_ray(Index32_2D, st, smin, smax, origin,
+                                 ray_dir, 2.0, ray_circle,
+                                 (t["pos"], t["radius"], t["origin"],
+                                  t["dirn"]))
+        st, res = layer.scan(Index32_2D, st, pair_cap)
+        return st, hit, res
+
+    reset_launches()
+    found = 0
+    for k in (0, 30, 60, 90):
+        a = np.float32(-1.9) + np.float32(1.4) * np.float32(k / 120.0)
+        ray_dir = np.array([np.sin(a) * 0.4, np.cos(a)], np.float32)
+        got, want = frame(dev, ray_dir), frame("cpu", ray_dir)
+        check(torch.equal(got[0].keys.cpu(), want[0].keys)
+              and torch.equal(got[0].ids.cpu(), want[0].ids)
+              and same_pick(got[1], want[1])
+              and not bool(got[2].overflow) and np.array_equal(
+                  layer.scan_result_to_numpy(got[2]),
+                  layer.scan_result_to_numpy(want[2])),
+              f"ball pit frame {k}: differs from the CPU path")
+        found += bool(got[1].found)
+        if k == 0:
+            launches = read_launches()
+    f_ms = p50(host_ms(lambda: frame(dev, ray_dir), 20))
+    profile_line("ball pit frame", lambda: frame(dev, ray_dir), f_ms)
+    print(f"ball pit (Index32_2D, min_depth 4, 2,500 balls): build -> "
+          f"pick_ray -> scan equal to the CPU path at 4 ray angles ({found} "
+          f"picks found, {int(got[2].count)} pairs in the last); frame p50 "
+          f"{f_ms:.3f} ms (20, inputs uploaded each frame); launches of one "
+          f"frame {launches}")
+    return launches, {"ball_pit_frame_p50": f_ms}
+
+
 def main() -> int:
     # 1. device
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this smoke test "
               "runs only on a CUDA card", file=sys.stderr)
@@ -1334,7 +1779,7 @@ def main() -> int:
         {f"{k:.3f}": {m: round(v, 3) for m, v in r.items()}
          for k, r in results.items()}))
 
-    # 8. every kernel timed at the main path's shapes, and the kernels line
+    # 8. every kernel timed at the main path's shapes
     launches = {"step": step_launches, "frame": frame_launches,
                 "scan_v2": v2_launches}
     # ms: CUDA events around one wrapper call (allocations and the host's
@@ -1374,6 +1819,42 @@ def main() -> int:
               f" ms, call {cuda_ms(lambda: wrapper(*args)):.3f} ms, plain "
               f"{cuda_ms(lambda: plain(*args)):.3f} ms, bound {bound_ms:.3f} "
               f"ms ({moved / 1e6:.1f} MB)")
+
+    # 9-16. the rest of the layer surface and the linear queries, each
+    # path's launches counted from 0
+    routes, surface, seconds = dict(launches), {}, {}
+
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    routes["merge"], surface["merge"] = timed_phase(
+        "merge", merge_phase, scene_big, dev, tree_cap, pair_cap, emit_cap,
+        state, want)
+    routes["extend"], surface["extend"] = timed_phase(
+        "extend", extend_phase, scene_big, dev, state)
+    routes["scan_filtered"], surface["scan_filtered"] = timed_phase(
+        "scan_filtered", filtered_phase, state, pair_cap, emit_cap, want)
+    routes["nested_ids"] = timed_phase("nested_ids", nested_phase, dev)
+    routes["scan_auto"] = timed_phase("scan_auto", scan_auto_phase, dev)
+    routes["br_scene"] = timed_phase(
+        "br_scene", scene_phase, scene_big, dev, tree_cap, pair_cap,
+        emit_cap, state, want)
+    routes["queries"], surface["queries"] = timed_phase(
+        "queries", query_phase, scene_big, dev, state)
+    routes["ball_pit"], surface["ball_pit"] = timed_phase(
+        "ball_pit", ball_pit_phase, dev)
+    print("surface summary: " + json.dumps(
+        {k: {m: round(v, 3) for m, v in r.items()}
+         for k, r in surface.items()}) + "; seconds per phase " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()})
+        + f"; {time.perf_counter() - t_start:.0f} s since the start")
+
+    # the kernels line: "routes" has each kernel's launches in every path
+    for row in rows:
+        row["routes"] = {r: n[row["name"]] for r, n in routes.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The port stands without JAX: ``broadphase_tpu_torch`` and ``chip_smoke``
-import, and a small step and update run, in a process where importing
+import, and a small step, update, extend + merge, BR_SCENE round trip and
+box query run, in a process where importing
 ``jax``, ``jaxlib`` or ``broadphase_tpu`` raises; no file of the port
 loads anything of ``broadphase_tpu/`` by path; its copies of the bench
 capacities, the bench scene and the C++ oracle bindings give what the
@@ -40,7 +41,8 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 import broadphase_tpu_torch as bt
 import chip_smoke
-from broadphase_tpu_torch import bench_caps, convert, layer, oracle, update
+from broadphase_tpu_torch import (bench_caps, convert, layer, oracle, query,
+                                  scene as br_scene, update)
 from broadphase_tpu_torch.ops import _cuda, build, compact, expand, expand2
 from broadphase_tpu_torch.ops import merge, prep, runends, search
 
@@ -58,6 +60,23 @@ tracked = update.build_tracked(bt.Index64_3D, *scene, out_capacity=8 * 500,
 moved = update.update(bt.Index64_3D, tracked, scene[0], scene[1],
                       scene[2] + 3.0, scene[3] + 3.0, 8 * 500)
 assert not bool(moved.state.overflow)
+half = layer.extend(bt.Index64_3D, layer.make_layer(bt.Index64_3D, 8 * 500,
+                                                    device="cpu"),
+                    scene[0], scene[1], scene[2][:250], scene[3][:250],
+                    scene[4][:250])
+rest = layer.build(bt.Index64_3D, scene[0], scene[1], scene[2][250:],
+                   scene[3][250:], scene[4][250:], device="cpu")
+merged = layer.sort(bt.Index64_3D, layer.merge(bt.Index64_3D, half, rest))
+assert layer.layers_equal(bt.Index64_3D, merged, state)
+restored = layer.layer_from_scene_layer(
+    bt.Index64_3D, br_scene.loads(br_scene.dumps(br_scene.Scene(
+        scene[0], scene[1], scene[2], scene[3], scene[4],
+        layer.layer_to_scene_layer(bt.Index64_3D, state)))).layer,
+    capacity=8 * 500, device="cpu")
+assert layer.layers_equal(bt.Index64_3D, restored, state)
+_, hits = query.test_box(bt.Index64_3D, state, scene[0], scene[1],
+                         (scene[2][0], scene[3][0]), 64)
+assert 0 in hits.ids[:int(hits.count)].tolist()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "broadphase_tpu"))
 assert not loaded, loaded

@@ -251,7 +251,8 @@ def test_run_from_jax_tracked_scene():
 
 
 @pytest.mark.parametrize("entry", ["build", "make_layer", "empty",
-                                   "builder_build", "build_tracked"])
+                                   "builder_build", "build_tracked",
+                                   "from_scene_layer"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device`` an entry point given numpy inputs runs on the
     card, and raises where there is none."""
@@ -268,6 +269,8 @@ def test_entry_points_default_to_the_card(entry):
                                           ids),
         "build_tracked": lambda: tup.build_tracked(spec, smin, smax, bmin,
                                                    bmax, ids),
+        "from_scene_layer": lambda: tl.layer_from_scene_layer(
+            spec, tl.SceneLayer()),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
