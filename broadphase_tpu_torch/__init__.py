@@ -1,6 +1,6 @@
 """broadphase_tpu_torch: the broadphase layer (build, extend, merge, sort,
-scan), its linear point and region queries and the temporal-coherence
-update on PyTorch and CUDA.
+scan), its point and region queries (linear, tree descent, batched), the
+generic traversals and the temporal-coherence update on PyTorch and CUDA.
 
 A port of ``broadphase_tpu`` (JAX on a TPU), which stays beside it as the
 reference.  Each Pallas kernel of the JAX package is a CUDA C++ kernel for
@@ -15,7 +15,7 @@ from .layer import (LayerBuilder, LayerState, ScanResult, TestResult, build,
                     capacity_of, clear, extend, layers_equal, make_layer,
                     merge, scan, scan_auto, scan_filtered, sort)
 # the modules, as in broadphase_tpu: update.update, query.pick_ray
-from . import query, scene, update
+from . import query, scene, singleq, traverse, update
 from .update import TrackedScene, build_tracked
 
 __all__ = [
@@ -23,5 +23,6 @@ __all__ = [
     "LayerBuilder", "LayerState", "ScanResult", "TestResult",
     "TrackedScene", "build", "build_tracked", "capacity_of", "clear",
     "extend", "layers_equal", "make_layer", "merge", "query", "scan",
-    "scan_auto", "scan_filtered", "scene", "sort", "update",
+    "scan_auto", "scan_filtered", "scene", "singleq", "sort", "traverse",
+    "update",
 ]

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .index import IndexSpec, U32_MASK, clz32, encode_axis
@@ -123,6 +124,24 @@ def emit_cells(spec: IndexSpec, lmin: torch.Tensor, lmax: torch.Tensor,
     return keys, valid, overflow
 
 
+def finite(x: torch.Tensor) -> torch.Tensor:
+    """``torch.isfinite`` in two device operations instead of four (NaN
+    and both infinities compare false)."""
+    return x.abs() < torch.inf
+
+
+def upload(t, device) -> torch.Tensor:
+    """A small host tensor or array on ``device``.  To a CUDA card it goes
+    through a pinned staging copy, asynchronously: a copy from pageable
+    memory would make the host wait for every operation queued before
+    it."""
+    t = torch.as_tensor(t)
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def replay_levels(spec: IndexSpec, replay: torch.Tensor) -> int:
     """Levels a replay must run: the largest replay depth of a valid key
     (depth field at most ``axis_bits``), read on the host; 0 when none."""
@@ -138,25 +157,42 @@ def replay_levels(spec: IndexSpec, replay: torch.Tensor) -> int:
 TABLE_LEVELS = 16
 
 
+def host_f32(x) -> np.ndarray:
+    """A query argument as a numpy float32 array on the host."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def halving_nodes_host(system_min, system_max, levels: int):
+    """:func:`halving_nodes` as numpy float32 arrays on the host."""
+    lo = host_f32(system_min)[None, :]
+    hi = host_f32(system_max)[None, :]
+    dim = lo.shape[1]
+    half32 = np.float32(0.5)
+    los, his = [lo], [hi]
+    for _ in range(levels):
+        half = (hi - lo) * half32
+        center = lo + half
+        lo = np.stack([lo, center], axis=1).reshape(-1, dim)
+        hi = np.stack([center, hi], axis=1).reshape(-1, dim)
+        los.append(lo)
+        his.append(hi)
+    return np.concatenate(los), np.concatenate(his)
+
+
 def halving_nodes(system_min, system_max, levels: int, device):
     """The f32 (lo, hi) of every cell of the system box's halving tree down
     to ``levels``: ((2 << levels) - 1, dim) each, on ``device``.  The cell
     of depth d whose coordinate's top d bits are p on an axis is row
     ``(1 << d) - 1 + p`` of that axis's column: a child keeps its parent's
     lo and takes the center as hi on side 0, the reverse on side 1.  The
-    table is small and built on the host (IEEE f32 operations give the
-    card's values), which saves the card a launch per operation."""
-    lo = torch.as_tensor(system_min, dtype=torch.float32).cpu()[None, :]
-    hi = torch.as_tensor(system_max, dtype=torch.float32).cpu()[None, :]
-    los, his = [lo], [hi]
-    for _ in range(levels):
-        half = (hi - lo) * 0.5
-        center = lo + half
-        lo = torch.stack([lo, center], dim=1).flatten(0, 1)
-        hi = torch.stack([center, hi], dim=1).flatten(0, 1)
-        los.append(lo)
-        his.append(hi)
-    return torch.cat(los).to(device), torch.cat(his).to(device)
+    table is small and built on the host in numpy (IEEE f32 operations
+    give the card's values), which saves the card a launch per
+    operation."""
+    both = upload(torch.from_numpy(np.stack(halving_nodes_host(
+        system_min, system_max, levels))), device)
+    return both[0], both[1]
 
 
 def node_rows(origin: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:

@@ -194,9 +194,13 @@ def depth_of(spec: IndexSpec, key: torch.Tensor) -> torch.Tensor:
 
 def origin_of(spec: IndexSpec, key: torch.Tensor
               ) -> Tuple[torch.Tensor, ...]:
+    """The top-aligned u32 coordinate of each axis: :func:`decode_axis` of
+    every axis at once, on a leading axis of ``dim`` (one pass of the
+    compress stages instead of one per axis)."""
     morton = (key & spec.origin_mask) >> spec.origin_shift
-    return tuple(decode_axis(spec, morton >> axis)
-                 for axis in range(spec.dim))
+    axes = torch.arange(spec.dim, device=key.device).reshape(
+        (spec.dim,) + (1,) * key.dim())
+    return tuple(decode_axis(spec, morton[None] >> axes).unbind(0))
 
 
 def level_mask(spec: IndexSpec, depth) -> torch.Tensor:
@@ -212,6 +216,62 @@ def descendant_max(spec: IndexSpec, key: torch.Tensor) -> torch.Tensor:
     """Largest key of any descendant-or-equal cell of ``key``."""
     below = spec.key_bits - spec.dim * (key & spec.depth_mask)
     return key | torch.where(below < 0, PAD_KEY, mask_below(below))
+
+
+def clamp_depth(spec: IndexSpec, depth) -> torch.Tensor:
+    """Depths clamped to ``axis_bits``, as int64."""
+    return _i64(depth).clamp(max=spec.axis_bits)
+
+
+def set_depth(spec: IndexSpec, key: torch.Tensor, depth) -> torch.Tensor:
+    """``key`` with its depth field replaced by ``min(depth, axis_bits)``."""
+    return (key & ~spec.depth_mask) | clamp_depth(spec, depth).to(key.device)
+
+
+def same_cell_at_depth(spec: IndexSpec, a: torch.Tensor, b: torch.Tensor,
+                       depth) -> torch.Tensor:
+    """Whether the cells of ``a`` and ``b`` agree on the origin bits
+    meaningful at ``depth``."""
+    return ((a ^ b) & level_mask(spec, depth).to(a.device)) == 0
+
+
+def overlaps(spec: IndexSpec, a: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    """Two cells overlap iff one is an ancestor-or-equal of the other
+    (reference ``src/index.rs:116-122``)."""
+    d = torch.minimum(depth_of(spec, a), depth_of(spec, b))
+    return same_cell_at_depth(spec, a, b, d)
+
+
+def subdivide(spec: IndexSpec, key: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Children of each cell in sorted order, on a new leading axis of
+    ``2**dim``, and whether the cell is above the depth limit (reference
+    ``src/index.rs:251-290``).  The child bits sit ``key_bits - dim *
+    (depth + 1)`` bits up.  Where that is negative (a depth field past
+    ``axis_bits``: a pad) the JAX package's u32 shift wraps and its shift
+    gives 0; here the shift is clamped and those bits masked, which gives
+    the same keys."""
+    depth = key & spec.depth_mask
+    shift = (spec.key_bits - spec.dim) - spec.dim * depth
+    kids = torch.arange(spec.fanout, device=key.device).reshape(
+        (spec.fanout,) + (1,) * key.dim())
+    bits = torch.where(shift >= 0, kids << shift.clamp(min=0), 0)
+    children = ((key | bits) & ~spec.depth_mask) | (depth + 1).clamp(
+        max=spec.axis_bits)
+    return children, depth < spec.axis_bits
+
+
+def subdivide_at(spec: IndexSpec, key: torch.Tensor, depth: int
+                 ) -> torch.Tensor:
+    """:func:`subdivide`'s children of cells whose depth ``depth`` is known
+    on the host and below ``axis_bits``: the same keys in fewer
+    operations, for the tree walks, whose frontier or stack knows each
+    cell's depth.  (2**dim, ...) keys."""
+    kids = torch.arange(spec.fanout, device=key.device).reshape(
+        (spec.fanout,) + (1,) * key.dim())
+    base = (key & ~spec.depth_mask) | (depth + 1)
+    return base | (kids << (spec.key_bits - spec.dim * (depth + 1)))
 
 
 def _axis_interleave_mask(dim: int, axis_bits: int, axis: int) -> int:

@@ -1,5 +1,16 @@
-"""Descendant-run structure of a sorted tree (``broadphase_tpu/ops/search.py``
-:155-278 on torch tensors).
+"""Searches over sorted device arrays, and the descendant-run structure of a
+sorted tree (``broadphase_tpu/ops/search.py`` on torch tensors).
+
+The bound searches (:func:`lower_bound_keys`, :func:`upper_bound_keys`,
+their bracketed forms, :func:`upper_bound_i32`, :func:`merged_upper_bound`)
+are ``torch.searchsorted``.  The JAX package runs them as plain XLA loops
+(no Pallas kernel computes them), and the port's keys are one int64 column
+whose pads (``INT64_MAX``) sort last, so signed order is key order and the
+library search computes the same function.  Positions are int64.  One
+value differs: in ``Index64_2D`` (``key_bits`` 63) the root cell's
+``descendant_max`` is ``INT64_MAX``, the pad, so its upper bound counts
+the pads; the JAX pad (all ones) sorts above it.  Every caller clamps an
+upper bound by the layer's count, where the two agree.
 
 :func:`descendant_run_ends` takes the run ends from pass 1 of the scan (the
 run-ends kernel, ``ops/runends.py``).  :func:`expand_runs` and
@@ -16,6 +27,65 @@ import torch
 
 from ..index import IndexSpec
 from .runends import scan_pass1
+
+
+def lower_bound_keys(spec: IndexSpec, keys: torch.Tensor,
+                     queries: torch.Tensor) -> torch.Tensor:
+    """For each query key q: the number of keys of the sorted ``keys``
+    below q (the first index of q's run), for queries of any shape."""
+    del spec
+    return torch.searchsorted(keys, queries.contiguous(), right=False)
+
+
+def upper_bound_keys(spec: IndexSpec, keys: torch.Tensor,
+                     queries: torch.Tensor) -> torch.Tensor:
+    """For each query key q: the number of keys at or below q (the
+    exclusive end of q's run)."""
+    del spec
+    return torch.searchsorted(keys, queries.contiguous(), right=True)
+
+
+def _bracket(bound: torch.Tensor, lo, hi) -> torch.Tensor:
+    """What the JAX package's bracketed binary search returns over a
+    sorted array: the global bound clamped into [lo, hi], and lo where
+    the bracket is inverted (its loop never runs)."""
+    b = torch.minimum(bound, hi) if isinstance(hi, torch.Tensor) \
+        else bound.clamp(max=int(hi))
+    return torch.maximum(b, lo) if isinstance(lo, torch.Tensor) \
+        else b.clamp(min=int(lo))
+
+
+def lower_bound_keys_bracketed(spec: IndexSpec, keys: torch.Tensor,
+                               queries: torch.Tensor, lo, hi
+                               ) -> torch.Tensor:
+    """:func:`lower_bound_keys` given per-query brackets [lo, hi].  The
+    JAX package runs a data-dependent loop that stops when every bracket
+    closes; on a sorted tree it returns the clamped global bound, which
+    is one search here, with no loop and no read on the host."""
+    return _bracket(lower_bound_keys(spec, keys, queries), lo, hi)
+
+
+def upper_bound_keys_bracketed(spec: IndexSpec, keys: torch.Tensor,
+                               queries: torch.Tensor, lo, hi
+                               ) -> torch.Tensor:
+    """:func:`upper_bound_keys` given per-query brackets [lo, hi]."""
+    return _bracket(upper_bound_keys(spec, keys, queries), lo, hi)
+
+
+def upper_bound_i32(sorted_vals: torch.Tensor, queries: torch.Tensor
+                    ) -> torch.Tensor:
+    """Number of elements of the sorted ``sorted_vals`` at or below each
+    query."""
+    return torch.searchsorted(sorted_vals, queries.contiguous(), right=True)
+
+
+def merged_upper_bound(spec: IndexSpec, keys: torch.Tensor,
+                       queries: torch.Tensor) -> torch.Tensor:
+    """For every query q: the number of keys of the sorted ``keys`` at or
+    below q, in query order.  The JAX package sorts the keys and queries
+    together because a gather is slow on its chip; the answer is the
+    upper bound."""
+    return upper_bound_keys(spec, keys, queries)
 
 
 def descendant_run_ends(spec: IndexSpec, keys: torch.Tensor) -> torch.Tensor:

@@ -25,16 +25,32 @@ the layer's device; the ids they are given hold ``PAD_ID`` past the
 tree's count, so index per-object arrays only where the mask they are
 given is set (or clamp first).
 
-The dispatchers take the JAX package's ``engine`` argument.  Only the
-linear engine is ported: ``None``, ``"auto"`` and ``"linear"`` run it at
-every tree size, which the JAX package's tests hold equal to its tree
-engine; ``"tree"`` raises until the sublinear engine is ported.
+The dispatchers choose the engine as the JAX package does: ``"auto"``
+(the default, or ``BROADPHASE_QUERY_ENGINE``) runs the sublinear tree
+engine (``singleq.py``) from 32,768 tree lanes up and the linear engine
+below; ``"linear"`` and ``"tree"`` force one.  Both give the same
+results, bit for bit.
+
+The batched queries (:func:`test_box_batch`, :func:`test_ray_batch`,
+:func:`pick_ray_batch`) answer Q queries over one id-sorted view of the
+tree, ``chunk`` queries at a time: the predicate runs over a (chunk, cap)
+block, and each query's hits are compacted (kernel 5) in id order, the
+first hit of each id kept, so no per-query sort is needed.  The JAX
+package marks "an earlier lane of this id hits" by a log-step OR-scan
+over the block; here one prefix count of the hits per row, compared with
+its value at the id group's first lane, marks the same lanes.  A batched
+query reads nothing on the host; a batched pick reads its tied lanes, as
+the single pick does.  ``pick_ray_batch`` calls ``get_dist`` once per
+query, on that query's slice of ``get_dist_args`` (each of which has a
+leading Q axis), with the single query's contract.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+import os
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import geom
@@ -46,7 +62,11 @@ _INT64_MAX = (1 << 63) - 1
 
 
 def _f32(x, dev) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    """A query argument as f32 on ``dev`` (host arrays without waiting for
+    the card, ``geom.upload``)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32)
+    return geom.upload(torch.as_tensor(x, dtype=torch.float32), dev)
 
 
 def _flag_truncation(state: LayerState, res):
@@ -121,36 +141,40 @@ def _ray_nodes(system_min, system_max, ray_origin, ray_dir, levels: int,
     path from the root, the least center-plane distance on the ray's far
     side of each center (amax), the largest on its near side (amin), and
     whether an axis-parallel ray missed a child's slab (dead).  Built on
-    the host, as ``geom.halving_nodes`` is, and moved to ``device``."""
-    cpu = torch.device("cpu")
-    inf = torch.tensor(float("inf"), dtype=torch.float32)
-    ro, rd = _f32(ray_origin, cpu), _f32(ray_dir, cpu)
-    lo_t, hi_t = geom.halving_nodes(system_min, system_max, levels, cpu)
-    amax = torch.full_like(lo_t[:1], inf)
-    amin = torch.full_like(lo_t[:1], -inf)
-    dead = torch.zeros_like(lo_t[:1], dtype=torch.bool)
+    the host in numpy float32, as ``geom.halving_nodes`` is, and moved to
+    ``device`` in one transfer."""
+    inf = np.float32(np.inf)
+    ro, rd = geom.host_f32(ray_origin), geom.host_f32(ray_dir)
+    lo_t, hi_t = geom.halving_nodes_host(system_min, system_max, levels)
+    dim = lo_t.shape[1]
+    amax = np.full((1, dim), inf, np.float32)
+    amin = np.full((1, dim), -inf, np.float32)
+    dead = np.zeros((1, dim), np.float32)
     tables = [[amax], [amin], [dead]]
+    half32 = np.float32(0.5)
     for b in range(levels):
         level = slice((1 << b) - 1, (2 << b) - 1)
         lo, hi = lo_t[level], hi_t[level]
-        half = (hi - lo) * 0.5
+        half = (hi - lo) * half32
         center = lo + half
-        dist = (center - ro) / rd
-        finite = torch.isfinite(dist)
+        with np.errstate(all="ignore"):
+            dist = (center - ro) / rd
+        finite = np.isfinite(dist)
         kids = []
         for side in (False, True):
             towards = (rd > 0) != side
             kids.append((
-                torch.minimum(amax, torch.where(finite & towards, dist, inf)),
-                torch.maximum(amin, torch.where(finite & ~towards, dist,
-                                                -inf)),
-                dead | (~finite & ((ro > center) != side))))
-        amax, amin, dead = (torch.stack(pair, dim=1).flatten(0, 1)
+                np.minimum(amax, np.where(finite & towards, dist, inf)),
+                np.maximum(amin, np.where(finite & ~towards, dist, -inf)),
+                np.maximum(dead, (~finite & ((ro > center) != side))
+                           .astype(np.float32))))
+        amax, amin, dead = (np.stack(pair, axis=1).reshape(-1, dim)
                             for pair in zip(*kids))
         for t, v in zip(tables, (amax, amin, dead)):
             t.append(v)
-    return [lo_t.to(device), hi_t.to(device)] + [
-        torch.cat(t).to(device) for t in tables]
+    out = geom.upload(torch.from_numpy(np.stack(
+        [lo_t, hi_t] + [np.concatenate(t) for t in tables])), device)
+    return [out[0], out[1], out[2], out[3], out[4] != 0]
 
 
 def ray_intervals_keys(spec: IndexSpec, keys: torch.Tensor, system_min,
@@ -188,9 +212,9 @@ def ray_intervals_keys(spec: IndexSpec, keys: torch.Tensor, system_min,
     rmin0 = _f32(range_min, dev)
     rmax0 = _f32(range_max, dev)
     for axis in range(spec.dim):
-        rmin0 = torch.where(torch.isfinite(lo_d[axis]),
+        rmin0 = torch.where(geom.finite(lo_d[axis]),
                             torch.maximum(rmin0, lo_d[axis]), rmin0)
-        rmax0 = torch.where(torch.isfinite(hi_d[axis]),
+        rmax0 = torch.where(geom.finite(hi_d[axis]),
                             torch.minimum(rmax0, hi_d[axis]), rmax0)
 
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
@@ -208,7 +232,7 @@ def ray_intervals_keys(spec: IndexSpec, keys: torch.Tensor, system_min,
         center = lo + half
         dist = (center - ro) / rd                               # (N, dim)
         side = ((origin >> (31 - b)) & 1) == 1
-        finite = torch.isfinite(dist)
+        finite = geom.finite(dist)
         towards = (rd > 0) != side
         upd_max = active & finite & towards
         upd_min = active & finite & ~towards
@@ -320,13 +344,18 @@ def _ray_visit_rank(spec: IndexSpec, origin, depth, ray_dir: torch.Tensor
     return rank
 
 
-def _argmin_pick_ranked(d: torch.Tensor, rank_of: Callable,
-                        ids: torch.Tensor, max_dist) -> PickResult:
+def _argmin_pick_ranked(spec: IndexSpec, d: torch.Tensor,
+                        keys: torch.Tensor, ids: torch.Tensor, max_dist,
+                        ray_dir, max_depth: Optional[int],
+                        pos: Optional[torch.Tensor] = None) -> PickResult:
     """The reference's winner: the first visited among the least
     distances, i.e. the lexicographic argmin of (distance, visit rank,
-    tree position).  The lanes at the least distance are read on the host
-    and only they are ranked: ``rank_of(lanes)`` gives their visit ranks.
-    A position is a lane, so the winner is unique."""
+    tree position).  The lanes at the least distance, their keys and tree
+    positions come to the host in one transfer, and only they are ranked,
+    there (:func:`_ray_visit_rank` on CPU tensors, the depth cut at
+    ``max_depth``).  A lane's tree position is ``pos[lane]``, or the lane
+    itself when ``pos`` is None; positions are distinct, so the winner is
+    unique."""
     dev = d.device
     hit = d < max_dist
     d = torch.where(hit, d, float("inf"))
@@ -336,8 +365,15 @@ def _argmin_pick_ranked(d: torch.Tensor, rank_of: Callable,
         false = torch.zeros((), dtype=torch.bool, device=dev)
         return PickResult(torch.full((), float("inf"), device=dev),
                           torch.full((), PAD_ID, device=dev), false, false)
-    rank = rank_of(lanes)
-    first = torch.where(rank == rank.min(), lanes, _INT64_MAX).min()
+    host = torch.stack([lanes, keys[lanes],
+                        lanes if pos is None else pos[lanes]]).cpu()
+    depth = depth_of(spec, host[1])
+    if max_depth is not None:
+        depth = depth.clamp(max=int(max_depth))
+    rank = _ray_visit_rank(spec, origin_of(spec, host[1]), depth,
+                           _f32(ray_dir, "cpu"))
+    first = int(host[0][torch.where(rank == rank.min(), host[2],
+                                    _INT64_MAX).argmin()])
     return PickResult(dmin, ids[first],
                       torch.ones((), dtype=torch.bool, device=dev),
                       torch.zeros((), dtype=torch.bool, device=dev))
@@ -348,7 +384,7 @@ def _distances(get_dist: Callable, args, cand: torch.Tensor) -> torch.Tensor:
     finite (a miss)."""
     d = torch.as_tensor(get_dist(*args), dtype=torch.float32,
                         device=cand.device)
-    return torch.where(torch.isfinite(d) & cand, d, float("inf"))
+    return torch.where(geom.finite(d) & cand, d, float("inf"))
 
 
 def pick_ray_linear(spec: IndexSpec, state: LayerState, system_min,
@@ -372,17 +408,8 @@ def pick_ray_linear(spec: IndexSpec, state: LayerState, system_min,
                                      max_depth)
     cand = (rmin < rmax) & (rmin < md) & live
     d = _distances(get_dist, (state.ids, cand, *get_dist_args), cand)
-
-    def rank_of(lanes):
-        keys = state.keys[lanes]
-        depth = depth_of(spec, keys)
-        if max_depth is not None:
-            depth = depth.clamp(max=int(max_depth))
-        return _ray_visit_rank(spec, origin_of(spec, keys), depth,
-                               _f32(ray_dir, dev))
-
-    return state, _flag_truncation(
-        state, _argmin_pick_ranked(d, rank_of, state.ids, md))
+    return state, _flag_truncation(state, _argmin_pick_ranked(
+        spec, d, state.keys, state.ids, md, ray_dir, max_depth))
 
 
 # ---------------------------------------------------------------------------
@@ -423,18 +450,24 @@ def pick(spec: IndexSpec, state: LayerState, system_min, system_max,
 
 
 # ---------------------------------------------------------------------------
-# Dispatchers
+# Dispatchers: linear replay or sublinear tree descent
 # ---------------------------------------------------------------------------
 
-def _linear_engine(engine: Optional[str]) -> None:
-    """Check the ``engine`` argument: only the linear engine is ported."""
-    if engine == "tree":
-        raise NotImplementedError(
-            "the sublinear tree engine (broadphase_tpu/singleq.py) is not "
-            "ported yet (ROADMAP.md, queue 1, item 5); use engine='linear'")
-    if engine not in (None, "auto", "linear"):
+_TREE_ENGINE_MIN_CAP = 32768
+
+
+def _engine(engine: Optional[str], cap: int) -> str:
+    """The engine a query runs (``broadphase_tpu.query._engine``):
+    ``engine``, else ``BROADPHASE_QUERY_ENGINE``, else ``"auto"``, which
+    is the tree engine from 32,768 lanes up."""
+    if engine is None:
+        engine = os.environ.get("BROADPHASE_QUERY_ENGINE", "auto")
+    if engine == "auto":
+        return "tree" if cap >= _TREE_ENGINE_MIN_CAP else "linear"
+    if engine not in ("linear", "tree"):
         raise ValueError(f"unknown query engine {engine!r}; expected "
                          "'linear', 'tree' or 'auto'")
+    return engine
 
 
 def test_box(spec: IndexSpec, state: LayerState, system_min, system_max,
@@ -443,9 +476,12 @@ def test_box(spec: IndexSpec, state: LayerState, system_min, system_max,
              candidate_cap: Optional[int] = None
              ) -> Tuple[LayerState, TestResult]:
     """``Layer::test_box`` (``broadphase_tpu.query.test_box``) by the
-    linear engine; ``candidate_cap`` belongs to the tree engine."""
-    del candidate_cap
-    _linear_engine(engine)
+    engine :func:`_engine` picks."""
+    if _engine(engine, state.ids.shape[0]) == "tree":
+        from . import singleq
+        return singleq.test_box(
+            spec, state, system_min, system_max, query_bounds, result_cap,
+            max_depth, candidate_cap or singleq.CANDIDATE_CAP)
     return test_box_linear(spec, state, system_min, system_max,
                            query_bounds, result_cap, max_depth)
 
@@ -457,9 +493,14 @@ def test_ray(spec: IndexSpec, state: LayerState, system_min, system_max,
              frontier_cap: Optional[int] = None
              ) -> Tuple[LayerState, TestResult]:
     """``Layer::test_ray`` (``broadphase_tpu.query.test_ray``) by the
-    linear engine; the two caps belong to the tree engine."""
-    del candidate_cap, frontier_cap
-    _linear_engine(engine)
+    engine :func:`_engine` picks."""
+    if _engine(engine, state.ids.shape[0]) == "tree":
+        from . import singleq
+        return singleq.test_ray(
+            spec, state, system_min, system_max, ray_origin, ray_dir,
+            range_min, range_max, result_cap, max_depth,
+            candidate_cap or singleq.CANDIDATE_CAP,
+            frontier_cap or singleq.FRONTIER_CAP)
     return test_ray_linear(spec, state, system_min, system_max, ray_origin,
                            ray_dir, range_min, range_max, result_cap,
                            max_depth)
@@ -473,9 +514,209 @@ def pick_ray(spec: IndexSpec, state: LayerState, system_min, system_max,
              frontier_cap: Optional[int] = None
              ) -> Tuple[LayerState, PickResult]:
     """``Layer::pick_ray`` (``broadphase_tpu.query.pick_ray``) by the
-    linear engine; the two caps belong to the tree engine."""
-    del candidate_cap, frontier_cap
-    _linear_engine(engine)
+    engine :func:`_engine` picks."""
+    if _engine(engine, state.ids.shape[0]) == "tree":
+        from . import singleq
+        return singleq.pick_ray(
+            spec, state, system_min, system_max, ray_origin, ray_dir,
+            max_distance, get_dist, get_dist_args, max_depth,
+            candidate_cap or singleq.CANDIDATE_CAP,
+            frontier_cap or singleq.FRONTIER_CAP)
     return pick_ray_linear(spec, state, system_min, system_max, ray_origin,
                            ray_dir, max_distance, get_dist, get_dist_args,
                            max_depth)
+
+
+# ---------------------------------------------------------------------------
+# Batched queries: Q queries over one id-sorted view
+# ---------------------------------------------------------------------------
+
+_BATCH_CHUNK = 64
+
+
+def _id_sorted_view(spec: IndexSpec, state: LayerState, system_min,
+                    system_max, max_depth: Optional[int], with_ray: bool):
+    """The elements in id order (a stable sort, so equal ids keep their
+    tree order) with their replayed cells: (ids, tree positions, cell_min,
+    cell_max, live, keys); the keys only for rays (their visit ranks),
+    else None."""
+    cmin, cmax, live = _element_cells(spec, state, system_min, system_max,
+                                      max_depth)
+    pos = torch.sort(state.ids, stable=True).indices
+    keys = state.keys[pos] if with_ray else None
+    return state.ids[pos], pos, cmin[pos], cmax[pos], live[pos], keys
+
+
+def _group_starts(ids_sorted: torch.Tensor) -> torch.Tensor:
+    """For id-sorted elements: the lane where each one's id group
+    starts."""
+    lane = torch.arange(ids_sorted.shape[0], device=ids_sorted.device)
+    first = torch.ones_like(ids_sorted, dtype=torch.bool)
+    first[1:] = ids_sorted[1:] != ids_sorted[:-1]
+    return torch.cummax(torch.where(first, lane, 0), 0).values
+
+
+def _unique_rows_sorted(ids_sorted: torch.Tensor, starts: torch.Tensor,
+                        hit: torch.Tensor, result_cap: int
+                        ) -> List[TestResult]:
+    """:func:`_unique_compact` of each row of ``hit`` (chunk, cap) over
+    the id-sorted elements: a lane is kept when it hits and no earlier
+    lane of its id group does (the hits before it equal the hits before
+    its group's first lane); the kept ids are already in ascending order
+    and distinct, and are compacted by kernel 5, one launch per row."""
+    before = torch.cumsum(hit, dim=1, dtype=torch.int32) - hit.to(
+        torch.int32)
+    keep = hit & (before == before[:, starts])
+    out = []
+    for row in keep:
+        (vals,), count = stream_compact(row, (ids_sorted,), (PAD_ID,))
+        if vals.shape[0] < result_cap:
+            vals = torch.cat([vals, vals.new_full(
+                (result_cap - vals.shape[0],), PAD_ID)])
+        out.append(TestResult(vals[:result_cap],
+                              count.clamp(max=result_cap),
+                              count > result_cap))
+    return out
+
+
+def _stack(rows, empty):
+    """Rows of one result type stacked on a leading Q axis."""
+    if not rows:
+        return empty
+    return type(rows[0])(*(torch.stack(f) for f in zip(*rows)))
+
+
+def _empty_hits(result_cap: int, dev) -> TestResult:
+    return TestResult(torch.full((0, result_cap), PAD_ID, device=dev),
+                      torch.zeros(0, dtype=torch.int64, device=dev),
+                      torch.zeros(0, dtype=torch.bool, device=dev))
+
+
+def _ray_intervals_cells(spec: IndexSpec, cmin, cmax, system_min,
+                         system_max, ro, rd, range_min, range_max):
+    """Each element's ray slab interval straight from its replayed cell
+    bounds (``broadphase_tpu.query._ray_intervals_cells``), for a chunk of
+    rays: ro, rd (C, dim) f32, range_min/max (C,) f32, cmin/cmax (cap,
+    dim).  Every distance the level-by-level replay takes is to a face of
+    the final cell or to a plane outside it along the ray, by the same
+    f32 expression, so the interval is the replay's, bit for bit; the
+    axis-parallel kill applies only at halved faces (inside the system
+    box).  Returns (rmin, rmax): (C, cap) f32 each."""
+    dev = cmin.device
+    smin, smax = _f32(system_min, dev), _f32(system_max, dev)
+    rmin = range_min[:, None].expand(-1, cmin.shape[0])
+    rmax = range_max[:, None].expand(-1, cmin.shape[0])
+    for axis in range(spec.dim):
+        lo_f, hi_f = cmin[None, :, axis], cmax[None, :, axis]
+        o, r = ro[:, axis, None], rd[:, axis, None]
+        d_lo = (lo_f - o) / r
+        d_hi = (hi_f - o) / r
+        fwd = r > 0
+        enter = torch.where(fwd, d_lo, d_hi)
+        leave = torch.where(fwd, d_hi, d_lo)
+        rmin = torch.where(geom.finite(enter),
+                           torch.maximum(rmin, enter), rmin)
+        rmax = torch.where(geom.finite(leave),
+                           torch.minimum(rmax, leave), rmax)
+        kill = ~geom.finite(d_lo) & (
+            ((lo_f > smin[axis]) & (o <= lo_f))
+            | ((hi_f < smax[axis]) & (o > hi_f)))
+        rmin = torch.where(kill, torch.inf, rmin)
+        rmax = torch.where(kill, -torch.inf, rmax)
+    return rmin, rmax
+
+
+def _per_query(x, Q: int, dev) -> torch.Tensor:
+    """A scalar or (Q,) argument as (Q,) f32 on ``dev``."""
+    return _f32(x, dev).expand(Q).contiguous()
+
+
+def test_box_batch(spec: IndexSpec, state: LayerState, system_min,
+                   system_max, query_bounds, result_cap: int,
+                   max_depth: Optional[int] = None,
+                   chunk: int = _BATCH_CHUNK
+                   ) -> Tuple[LayerState, TestResult]:
+    """:func:`test_box` over (Q, dim) query boxes
+    (``broadphase_tpu.query.test_box_batch``); the result's fields carry a
+    leading Q axis, and each row equals the single query's."""
+    state = sort(spec, state)
+    dev = state.ids.device
+    qmin, qmax = _f32(query_bounds[0], dev), _f32(query_bounds[1], dev)
+    ids_s, _, cmin, cmax, live, _ = _id_sorted_view(
+        spec, state, system_min, system_max, max_depth, with_ray=False)
+    starts = _group_starts(ids_s)
+    rows = []
+    for c in range(0, qmin.shape[0], chunk):
+        hit = geom.bounds_overlaps(cmin[None], cmax[None],
+                                   qmin[c:c + chunk, None, :],
+                                   qmax[c:c + chunk, None, :]) & live
+        rows += _unique_rows_sorted(ids_s, starts, hit, result_cap)
+    return state, _flag_truncation(state, _stack(
+        rows, _empty_hits(result_cap, dev)))
+
+
+def test_ray_batch(spec: IndexSpec, state: LayerState, system_min,
+                   system_max, ray_origins, ray_dirs, range_min, range_max,
+                   result_cap: int, max_depth: Optional[int] = None,
+                   chunk: int = _BATCH_CHUNK
+                   ) -> Tuple[LayerState, TestResult]:
+    """:func:`test_ray` over (Q, dim) origins and directions
+    (``broadphase_tpu.query.test_ray_batch``); ``range_min`` and
+    ``range_max`` are scalars or (Q,)."""
+    state = sort(spec, state)
+    dev = state.ids.device
+    ro, rd = _f32(ray_origins, dev), _f32(ray_dirs, dev)
+    Q = ro.shape[0]
+    lo, hi = _per_query(range_min, Q, dev), _per_query(range_max, Q, dev)
+    ids_s, _, cmin, cmax, live, _ = _id_sorted_view(
+        spec, state, system_min, system_max, max_depth, with_ray=False)
+    starts = _group_starts(ids_s)
+    rows = []
+    for c in range(0, Q, chunk):
+        q = slice(c, c + chunk)
+        rmin, rmax = _ray_intervals_cells(spec, cmin, cmax, system_min,
+                                          system_max, ro[q], rd[q], lo[q],
+                                          hi[q])
+        rows += _unique_rows_sorted(ids_s, starts, (rmin < rmax) & live,
+                                    result_cap)
+    return state, _flag_truncation(state, _stack(
+        rows, _empty_hits(result_cap, dev)))
+
+
+def pick_ray_batch(spec: IndexSpec, state: LayerState, system_min,
+                   system_max, ray_origins, ray_dirs, max_distance,
+                   get_dist: Callable, get_dist_args=(),
+                   max_depth: Optional[int] = None,
+                   chunk: int = _BATCH_CHUNK
+                   ) -> Tuple[LayerState, PickResult]:
+    """:func:`pick_ray` over (Q, dim) rays
+    (``broadphase_tpu.query.pick_ray_batch``); the result's fields carry a
+    leading Q axis.  ``max_distance`` is a scalar or (Q,); every element
+    of ``get_dist_args`` has a leading Q axis, and ``get_dist(ids, mask,
+    *args_q)`` is called once per query, over the id-sorted elements."""
+    state = sort(spec, state)
+    dev = state.ids.device
+    ro, rd = _f32(ray_origins, dev), _f32(ray_dirs, dev)
+    Q = ro.shape[0]
+    md = _per_query(max_distance, Q, dev)
+    rd_host = geom.host_f32(ray_dirs)
+    ids_s, pos_s, cmin, cmax, live, keys_s = _id_sorted_view(
+        spec, state, system_min, system_max, max_depth, with_ray=True)
+    zero = torch.zeros(Q, dtype=torch.float32, device=dev)
+    rows = []
+    for c in range(0, Q, chunk):
+        q = slice(c, c + chunk)
+        rmin, rmax = _ray_intervals_cells(spec, cmin, cmax, system_min,
+                                          system_max, ro[q], rd[q], zero[q],
+                                          md[q])
+        for j in range(rmin.shape[0]):
+            i = c + j
+            cand = (rmin[j] < rmax[j]) & (rmin[j] < md[i]) & live
+            d = _distances(get_dist, (ids_s, cand, *(a[i] for a in
+                                                     get_dist_args)), cand)
+            rows.append(_argmin_pick_ranked(spec, d, keys_s, ids_s, md[i],
+                                            rd_host[i], max_depth, pos_s))
+    false = torch.zeros(0, dtype=torch.bool, device=dev)
+    return state, _flag_truncation(state, _stack(rows, PickResult(
+        torch.zeros(0, device=dev), torch.zeros(0, dtype=torch.int64,
+                                                device=dev), false, false)))

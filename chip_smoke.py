@@ -9,8 +9,12 @@ bits included, and the oracle.  Then the rest of the layer surface and
 the linear queries: the static + dynamic merge (kernel 6) and clear +
 extend (kernel 1) at 1M against the fresh build, scan_filtered at 1M and
 nested_ids at 100k against the oracle, scan_auto at 30k, a BR_SCENE round
-trip at 1M, box, ray and pick queries at 1M and the ball pit's frame
-against the CPU path.
+trip at 1M, box, ray and pick queries at 1M (the linear engine) and the
+ball pit's frame against the CPU path.  Then the sublinear tree engine at
+1M against the linear engine, the batched queries at 1M against single
+queries, and the generic traversals (test_generic against test_box at
+1M, a non-monotone band and the ordered picks against the CPU path at
+30k, one ordered ray pick at 1M).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -32,13 +36,15 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from broadphase_tpu_torch import (Index32_2D, Index64_2D, Index64_3D,
-                                  bench_caps, geom, layer, query)
+                                  bench_caps, geom, layer, query, singleq,
+                                  traverse)
 from broadphase_tpu_torch import scene as br_scene
 from broadphase_tpu_torch import oracle as native
 from broadphase_tpu_torch import update as upd
@@ -1424,12 +1430,12 @@ def same_pick(a, b) -> bool:
             and torch.equal(a.distance.cpu(), b.distance.cpu()))
 
 
-def query_phase(scene_big, dev, fresh):
-    """32 boxes, 32 rays and 8 ray picks on the 1M tree, each equal to the
-    CPU path on the same tree.  Returns (their launches, the p50 per query
-    of each kind on the card)."""
+def query_set(scene_big):
+    """The query phases' queries on the 1M scene: 32 boxes, 32 rays (8
+    axis-parallel or -aligned) and 8 ray picks aimed at objects (origin,
+    direction, unit direction), and the objects' sphere centers and
+    radii."""
     smin, smax, bmin, bmax, ids = scene_big
-    cpu = to_cpu(fresh)
     rng = np.random.default_rng(21)
     ext = smax - smin
     boxes = []
@@ -1453,24 +1459,47 @@ def query_phase(scene_big, dev, fresh):
         ro = (smin + rng.uniform(0, 1, 3) * ext).astype(np.float32)
         d = (centers[rng.integers(len(ids))] - ro).astype(np.float32)
         picks.append((ro, d, (d / np.linalg.norm(d)).astype(np.float32)))
+    return boxes, rays, picks, centers, radii
+
+
+QUERY_CAP = 1 << 16
+
+
+def query_fns(scene_big, dev, centers, radii, **kw):
+    """(box, ray, pick): one query of each kind on a layer, through the
+    dispatchers with the keyword arguments ``kw`` (the engine, its
+    caps)."""
+    smin, smax = scene_big[0], scene_big[1]
     on = {dv.type: (torch.as_tensor(centers, device=dv),
                     torch.as_tensor(radii, device=dv))
           for dv in (dev, torch.device("cpu"))}
-    cap = 1 << 16
 
     def box(st, q):
-        return query.test_box(SPEC, st, smin, smax, q, cap)[1]
+        return query.test_box(SPEC, st, smin, smax, q, QUERY_CAP, **kw)[1]
 
     def ray(st, q):
         return query.test_ray(SPEC, st, smin, smax, q[0], q[1], 0.0, np.inf,
-                              cap)[1]
+                              QUERY_CAP, **kw)[1]
 
     def pick(st, q):
         dv = st.ids.device
         args = on[dv.type] + (torch.as_tensor(q[0], device=dv),
                               torch.as_tensor(q[2], device=dv))
         return query.pick_ray(SPEC, st, smin, smax, q[0], q[1], 1e9,
-                              ray_sphere, args)[1]
+                              ray_sphere, args, **kw)[1]
+
+    return box, ray, pick
+
+
+def query_phase(scene_big, dev, fresh):
+    """32 boxes, 32 rays and 8 ray picks on the 1M tree by the linear
+    engine (pinned: the dispatchers pick the tree engine at 1M), each equal
+    to the CPU path on the same tree.  Returns (their launches, the p50
+    per query of each kind on the card)."""
+    cpu = to_cpu(fresh)
+    boxes, rays, picks, centers, radii = query_set(scene_big)
+    box, ray, pick = query_fns(scene_big, dev, centers, radii,
+                               engine="linear")
 
     reset_launches()
     results = {name: [fn(fresh, q) for q in qs] for name, fn, qs in (
@@ -1569,6 +1598,330 @@ def ball_pit_phase(dev):
           f"{f_ms:.3f} ms (20, inputs uploaded each frame); launches of one "
           f"frame {launches}")
     return launches, {"ball_pit_frame_p50": f_ms}
+
+
+def count_syncs(fn):
+    """(fn(), the host synchronizations it made), counted by torch's sync
+    debug mode, which warns at each call that waits for the card."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def degenerate_boxes(scene_big):
+    """Boxes that cross the tree engine's u32 descent: inverted, NaN on an
+    axis, all NaN, a point, one outside the system box."""
+    smin, smax, bmin, _, _ = scene_big
+    p = bmin[12345]
+    nan = p.copy()
+    nan[1] = np.nan
+    return [(p + 20.0, p - 20.0), (p + 0.5, p - 0.5), (nan, nan + 10.0),
+            (np.full(3, np.nan, np.float32),) * 2, (p, p.copy()),
+            (smax + 5.0, smax + 9.0)]
+
+
+def tree_query_phase(scene_big, dev, fresh):
+    """The sublinear tree engine at 1M: the query phase's boxes, rays and
+    picks and some degenerate boxes, each equal to the linear engine on
+    the card (ids, count, overflow; pick id and f32 distance), a few to
+    the CPU tree engine; p50 per query of both engines, timed in turns,
+    and the host synchronizations per query.  Returns (the tree engine's
+    launches, its p50s)."""
+    boxes, rays, picks, centers, radii = query_set(scene_big)
+    boxes = boxes + degenerate_boxes(scene_big)
+    tree = query_fns(scene_big, dev, centers, radii, engine="tree")
+    lin = query_fns(scene_big, dev, centers, radii, engine="linear")
+    kinds = (("box", boxes, same_hits), ("ray", rays, same_hits),
+             ("pick", picks, same_pick))
+    reset_launches()
+    reads0 = singleq._ray_frontier_ranges.host_reads
+    got = {name: [tree[k](fresh, q) for q in qs]
+           for k, (name, qs, _) in enumerate(kinds)}
+    launches = read_launches()
+    levels = singleq._ray_frontier_ranges.host_reads - reads0
+    cpu = to_cpu(fresh)
+    cpu_tree = query_fns(scene_big, dev, centers, radii, engine="tree")
+    n_ovf = 0
+    for k, (name, qs, same) in enumerate(kinds):
+        for i, (q, res) in enumerate(zip(qs, got[name])):
+            want = lin[k](fresh, q)
+            check(not bool(want.overflow), f"tree 1M: {name} {i}: the "
+                  "linear engine overflowed its result buffer")
+            if bool(res.overflow):
+                # the default caps were too small for this query: it says
+                # so, and with larger caps it is exact
+                n_ovf += 1
+                res = query_fns(scene_big, dev, centers, radii,
+                                engine="tree", candidate_cap=1 << 16,
+                                frontier_cap=4096)[k](fresh, q)
+            check(same(res, want), f"tree 1M: {name} {i} differs from the "
+                  "linear engine on the card")
+            if i < (2 if name == "pick" else 4):
+                check(same(cpu_tree[k](cpu, q), res), f"tree 1M: {name} {i}"
+                      " differs from the CPU tree engine")
+    summary, syncs = {}, {}
+    for k, (name, qs, _) in enumerate(kinds):
+        tree[k](fresh, qs[0])
+        walls = {"tree": [], "linear": []}
+        for q in qs:
+            for eng, fns in (("linear", lin), ("tree", tree)):
+                walls[eng] += host_ms(lambda: fns[k](fresh, q), 1)
+        summary[f"{name}_tree"] = p50(walls["tree"])
+        summary[f"{name}_linear"] = p50(walls["linear"])
+        torch.cuda.synchronize()
+        syncs[name] = (count_syncs(lambda: tree[k](fresh, qs[1]))[1],
+                       count_syncs(lambda: lin[k](fresh, qs[1]))[1])
+    hits = [int(r.count) for r in got["box"] + got["ray"]]
+    print(f"tree queries 1M: {len(boxes)} boxes ({len(boxes) - 32} "
+          f"degenerate: inverted, NaN, a point, outside), {len(rays)} rays "
+          f"and {len(picks)} ray-sphere picks by the tree engine equal the "
+          f"linear engine on the card, and 4 + 4 + 2 of them the CPU tree "
+          f"engine; {n_ovf} overflowed the default caps (candidate "
+          f"{singleq.CANDIDATE_CAP}, frontier {singleq.FRONTIER_CAP}) and "
+          f"were exact with larger ones; hits per box/ray {min(hits)}-"
+          f"{max(hits)}; p50 per query tree / linear: test_box "
+          f"{summary['box_tree']:.3f} / {summary['box_linear']:.3f} ms, "
+          f"test_ray {summary['ray_tree']:.3f} / {summary['ray_linear']:.3f} "
+          f"ms, pick_ray {summary['pick_tree']:.3f} / "
+          f"{summary['pick_linear']:.3f} ms; host synchronizations per query"
+          f" tree / linear: box {syncs['box'][0]} / {syncs['box'][1]}, ray "
+          f"{syncs['ray'][0]} / {syncs['ray'][1]}, pick {syncs['pick'][0]} "
+          f"/ {syncs['pick'][1]}; frontier levels per ray or pick "
+          f"{levels / (len(rays) + len(picks)):.2f} (one host read each); "
+          f"launches {launches}")
+    profile_line("test_ray tree 1M", lambda: tree[1](fresh, rays[0]),
+                 summary["ray_tree"])
+    return launches, summary
+
+
+def batch_query_phase(scene_big, dev, fresh):
+    """The batched queries at 1M: Q = 256 boxes, 256 rays and 64 ray-sphere
+    picks, chunk 64; every row equal to the single query on the card (the
+    linear engine).  Prints ms per query amortized and the peak memory of
+    each batch.  Returns (the batches' launches, their ms per query)."""
+    smin, smax, bmin, bmax, ids = scene_big
+    rng = np.random.default_rng(22)
+    ext = smax - smin
+    lo = (smin + rng.uniform(0, 1, (256, 3)) * (ext - 30)).astype(np.float32)
+    qb = (lo, (lo + rng.uniform(1, 30, (256, 3))).astype(np.float32))
+    ro = (smin + rng.uniform(0, 1, (256, 3)) * ext).astype(np.float32)
+    rd = rng.normal(size=(256, 3)).astype(np.float32)
+    rd[::16, 0] = 0.0                            # axis-parallel
+    centers = ((bmin + bmax) / 2.0).astype(np.float32)
+    radii = (np.min(bmax - bmin, axis=1) / 2.0).astype(np.float32)
+    pro = ro[:64]
+    pd = (centers[rng.integers(len(ids), size=64)] - pro).astype(np.float32)
+    pdn = (pd / np.linalg.norm(pd, axis=1, keepdims=True)).astype(np.float32)
+    c_t, r_t = (torch.as_tensor(centers, device=dev),
+                torch.as_tensor(radii, device=dev))
+    pargs = (c_t.expand(64, -1, -1), r_t.expand(64, -1),
+             torch.as_tensor(pro, device=dev),
+             torch.as_tensor(pdn, device=dev))
+
+    runs = {
+        "box": lambda: query.test_box_batch(SPEC, fresh, smin, smax, qb,
+                                            QUERY_CAP)[1],
+        "ray": lambda: query.test_ray_batch(SPEC, fresh, smin, smax, ro, rd,
+                                            0.0, np.inf, QUERY_CAP)[1],
+        "pick": lambda: query.pick_ray_batch(SPEC, fresh, smin, smax, pro,
+                                             pd, 1e9, ray_sphere, pargs)[1],
+    }
+    reset_launches()
+    got = {name: run() for name, run in runs.items()}
+    launches = read_launches()
+    box, ray, pick = query_fns(scene_big, dev, centers, radii,
+                               engine="linear")
+    for q in range(256):
+        row = type(got["box"])(*(f[q] for f in got["box"]))
+        check(same_hits(row, box(fresh, (qb[0][q], qb[1][q]))),
+              f"batch 1M: box row {q} differs from the single query")
+        row = type(got["ray"])(*(f[q] for f in got["ray"]))
+        check(same_hits(row, ray(fresh, (ro[q], rd[q]))),
+              f"batch 1M: ray row {q} differs from the single query")
+    for q in range(64):
+        row = type(got["pick"])(*(f[q] for f in got["pick"]))
+        check(same_pick(row, pick(fresh, (pro[q], pd[q], pdn[q]))),
+              f"batch 1M: pick row {q} differs from the single query")
+    summary, peaks = {}, {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        walls = host_ms(run, 2)
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        summary[f"{name}_batch_ms_per_query"] = min(walls) / (
+            64 if name == "pick" else 256)
+    found = int(got["pick"].found.sum())
+    print(f"batch queries 1M (chunk 64): 256 boxes, 256 rays (16 axis-"
+          f"parallel) and 64 ray-sphere picks ({found} found), every row "
+          f"equal to the single query on the card; ms per query amortized "
+          f"(the better of 2 batches): test_box_batch "
+          f"{summary['box_batch_ms_per_query']:.3f}, test_ray_batch "
+          f"{summary['ray_batch_ms_per_query']:.3f}, pick_ray_batch "
+          f"{summary['pick_batch_ms_per_query']:.3f}; peak memory above the "
+          f"tree {peaks['box']:.2f} / {peaks['ray']:.2f} / "
+          f"{peaks['pick']:.2f} GiB; launches {launches}")
+    return launches, summary
+
+
+def sphere_one(nearest, oid, centers, radii, ro, dn):
+    """ray_sphere for one object id (the ordered pick's narrow phase)."""
+    i = oid.reshape(1)            # index_select: no wait for the card
+    c = centers.index_select(0, i)[0] - ro
+    t = c[0] * dn[0] + c[1] * dn[1] + c[2] * dn[2]
+    d2 = c[0] * c[0] + c[1] * c[1] + c[2] * c[2] - t * t
+    r = radii.index_select(0, i)[0]
+    r2 = r * r
+    root = torch.sqrt(torch.clamp(r2 - d2, min=0.0))
+    hit = (d2 <= r2) & (t + root >= 0)
+    return torch.where(hit, t - root, torch.inf)
+
+
+def band_test(lo, hi, gap_x):
+    """A non-monotone predicate: overlap with [lo, hi], and a cell extent
+    of at least a quarter of the box or of at most 2, or a cell right of
+    x = gap_x; left of it, middle-sized cells prune descendants that
+    would pass their own test."""
+    def should_test(gstate):
+        cmin, cmax = gstate
+        overlap = torch.all((cmin <= hi) & (cmax >= lo), dim=-1)
+        ext = torch.amax(cmax - cmin, dim=-1)
+        return overlap & ((ext >= 250.0) | (ext <= 2.0)
+                          | (cmin[..., 0] >= gap_x))
+    return should_test
+
+
+def traverse_phase(scene_big, dev, fresh):
+    """The generic traversals on the card: test_generic with the box
+    halving state and the box predicate equal to test_box at 1M; a
+    non-monotone band, pick_ordered (box geometry, an id-hash distance)
+    and pick_ray_ordered (ray-sphere) equal to the CPU path at 30k; one
+    1M pick_ray_ordered with id_bound, timed, with its steps.  Returns
+    (the launches of the 1M walk, its times)."""
+    smin, smax = scene_big[0], scene_big[1]
+    root, sub = traverse.box_halving_state(SPEC, smin, smax)
+    rng = np.random.default_rng(23)
+    boxes = []
+    for _ in range(4):
+        lo = (smin + rng.uniform(0, 1, 3) * (smax - smin - 30)).astype(
+            np.float32)
+        boxes.append((lo, (lo + rng.uniform(5, 30, 3)).astype(np.float32)))
+    reset_launches()
+    walks = []
+    for lo, hi in boxes:
+        lo_t, hi_t = torch.as_tensor(lo, device=dev), torch.as_tensor(
+            hi, device=dev)
+        walks.append(traverse.test_generic(
+            SPEC, fresh, root, sub, lambda g, lo_t=lo_t, hi_t=hi_t: torch.all(
+                (g[0] <= hi_t) & (g[1] >= lo_t), dim=-1), QUERY_CAP,
+            frontier_cap=4096)[1])
+    launches = read_launches()
+    for (lo, hi), got in zip(boxes, walks):
+        want = query.test_box(SPEC, fresh, smin, smax, (lo, hi), QUERY_CAP,
+                              engine="linear")[1]
+        check(same_hits(got, want), "traverse 1M: test_generic with the box "
+              "predicate differs from test_box")
+    lo_t, hi_t = torch.as_tensor(boxes[0][0], device=dev), torch.as_tensor(
+        boxes[0][1], device=dev)
+    g_ms = p50(host_ms(lambda: traverse.test_generic(
+        SPEC, fresh, root, sub, lambda g: torch.all(
+            (g[0] <= hi_t) & (g[1] >= lo_t), dim=-1), QUERY_CAP,
+        frontier_cap=4096), 5))
+
+    # 30k: the card against the CPU
+    n = 30_000
+    sc = bench_caps.bench_scene(3, n, seed=7)
+    on = {where: layer.build(SPEC, *sc, out_capacity=4 * n, device=dv)
+          for where, dv in (("card", dev), ("cpu", torch.device("cpu")))}
+    smin3, smax3 = sc[0], sc[1]
+    mid = (smin3 + smax3) / 2
+    root3, sub3 = traverse.box_halving_state(SPEC, smin3, smax3)
+    lo, hi = mid - 40.0, mid + 40.0
+    res = {}
+    for dv, st in on.items():
+        pred = band_test(torch.as_tensor(lo, device=st.ids.device),
+                         torch.as_tensor(hi, device=st.ids.device),
+                         float(mid[0]))
+        res[dv] = traverse.test_generic(SPEC, st, root3, sub3, pred,
+                                        QUERY_CAP, frontier_cap=4096)[1]
+    box30 = query.test_box(SPEC, on["card"], smin3, smax3, (lo, hi),
+                           QUERY_CAP, engine="linear")[1]
+    check(same_hits(res["card"], res["cpu"]) and 0 < int(res["card"].count)
+          < int(box30.count), "traverse 30k: the non-monotone band differs "
+          "from the CPU path (or prunes nothing)")
+    centers = ((sc[2] + sc[3]) / 2.0).astype(np.float32)
+    radii = (np.min(sc[3] - sc[2], axis=1) / 2.0).astype(np.float32)
+    steps0 = traverse.pick_ordered.steps
+    n_found = 0
+    for k in range(4):
+        ro = (smin3 + rng.uniform(0, 1, 3) * (smax3 - smin3)).astype(
+            np.float32)
+        d = (centers[rng.integers(n)] - ro).astype(np.float32)
+        dn = (d / np.linalg.norm(d)).astype(np.float32)
+        qlo = (ro - 30.0).astype(np.float32)
+        out = {}
+        for dv, st in on.items():
+            t = st.ids.device
+            args = tuple(torch.as_tensor(x, device=t) for x in (
+                centers, radii, ro, dn))
+            ray = traverse.pick_ray_ordered(SPEC, st, smin3, smax3, ro, d,
+                                            1e9, sphere_one, args)[1]
+            boxp = traverse.pick_ordered(
+                SPEC, st, *traverse.box_pick_state(SPEC, smin3, smax3, qlo,
+                                                   qlo + 60.0),
+                lambda g, near, oid: ((oid * 2654435761) % 4096).to(
+                    torch.float32) / 16.0, 1e9)[1]
+            out[dv] = (ray, boxp)
+        check(same_pick(out["card"][0], out["cpu"][0])
+              and same_pick(out["card"][1], out["cpu"][1]),
+              f"traverse 30k: ordered pick {k} differs from the CPU path")
+        n_found += bool(out["card"][0].found)
+    steps30 = (traverse.pick_ordered.steps - steps0) / 16
+
+    # 1M: one ordered ray pick with id_bound, timed
+    c_t, r_t = (torch.as_tensor(a, device=dev) for a in query_set(
+        scene_big)[3:])
+    _, _, picks, _, _ = query_set(scene_big)
+    ro, d, dn = picks[0]
+    args = (c_t, r_t, torch.as_tensor(ro, device=dev),
+            torch.as_tensor(dn, device=dev))
+
+    def ordered():
+        return traverse.pick_ray_ordered(SPEC, fresh, smin, smax, ro, d, 1e9,
+                                         sphere_one, args,
+                                         id_bound=len(scene_big[4]))[1]
+
+    steps0, reads0 = traverse.pick_ordered.steps, \
+        traverse.pick_ordered.host_reads
+    t0 = time.perf_counter()
+    got = ordered()
+    torch.cuda.synchronize()
+    o_ms = (time.perf_counter() - t0) * 1e3
+    steps = traverse.pick_ordered.steps - steps0
+    reads = traverse.pick_ordered.host_reads - reads0
+    want = query.pick_ray(SPEC, fresh, smin, smax, ro, d, 1e9, ray_sphere,
+                          args, engine="linear")[1]
+    check(same_pick(got, want), "traverse 1M: pick_ray_ordered with the "
+          "ray-sphere narrow phase differs from pick_ray")
+    print(f"traverse: test_generic (box halving, box predicate) equals "
+          f"test_box at 1M for 4 boxes, p50 {g_ms:.3f} ms; at 30k a "
+          f"non-monotone band ({int(res['card'].count)} of the box's "
+          f"{int(box30.count)} hits) and 4 pick_ray_ordered (ray-sphere, "
+          f"{n_found} found) and 4 box pick_ordered (id-hash distance) equal"
+          f" the CPU path, {steps30:.0f} steps per pick; at 1M "
+          f"pick_ray_ordered with id_bound equals pick_ray (found "
+          f"{bool(got.found)}): {steps} steps, {reads} host reads, "
+          f"{o_ms:.1f} ms, {o_ms / max(steps, 1):.3f} ms per step; launches "
+          f"of the 1M walks {launches}")
+    return launches, {"test_generic_1M_p50": g_ms,
+                      "pick_ray_ordered_1M_ms": o_ms,
+                      "pick_ray_ordered_1M_steps": steps,
+                      "ms_per_step": o_ms / max(steps, 1)}
 
 
 def main() -> int:
@@ -1846,6 +2199,13 @@ def main() -> int:
         "queries", query_phase, scene_big, dev, state)
     routes["ball_pit"], surface["ball_pit"] = timed_phase(
         "ball_pit", ball_pit_phase, dev)
+    # 17-19. the tree engine, the batched queries and the traversals
+    routes["tree_queries"], surface["tree_queries"] = timed_phase(
+        "tree_queries", tree_query_phase, scene_big, dev, state)
+    routes["batch_queries"], surface["batch_queries"] = timed_phase(
+        "batch_queries", batch_query_phase, scene_big, dev, state)
+    routes["traverse"], surface["traverse"] = timed_phase(
+        "traverse", traverse_phase, scene_big, dev, state)
     print("surface summary: " + json.dumps(
         {k: {m: round(v, 3) for m, v in r.items()}
          for k, r in surface.items()}) + "; seconds per phase " + json.dumps(

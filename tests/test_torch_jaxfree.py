@@ -1,11 +1,11 @@
 """The port stands without JAX: ``broadphase_tpu_torch`` and ``chip_smoke``
 import, and a small step, update, extend + merge, BR_SCENE round trip and
-box query run, in a process where importing
-``jax``, ``jaxlib`` or ``broadphase_tpu`` raises; no file of the port
-loads anything of ``broadphase_tpu/`` by path; its copies of the bench
-capacities, the bench scene and the C++ oracle bindings give what the
-originals give.  ``chip_smoke.py`` fails without a CUDA card, and when it
-stands alone without the repository.
+box query (both engines, batched, and the generic walk) run, in a process
+where importing ``jax``, ``jaxlib`` or ``broadphase_tpu`` raises; no file
+of the port loads anything of ``broadphase_tpu/`` by path; its copies of
+the bench capacities, the bench scene and the C++ oracle bindings give
+what the originals give.  ``chip_smoke.py`` fails without a CUDA card, and
+when it stands alone without the repository.
 """
 
 import ast
@@ -39,10 +39,12 @@ sys.meta_path.insert(0, _Block())
 sys.path.insert(0, sys.argv[1])
 
 import numpy as np
+import torch
 import broadphase_tpu_torch as bt
 import chip_smoke
 from broadphase_tpu_torch import (bench_caps, convert, layer, oracle, query,
-                                  scene as br_scene, update)
+                                  scene as br_scene, singleq, traverse,
+                                  update)
 from broadphase_tpu_torch.ops import _cuda, build, compact, expand, expand2
 from broadphase_tpu_torch.ops import merge, prep, runends, search
 
@@ -77,6 +79,19 @@ assert layer.layers_equal(bt.Index64_3D, restored, state)
 _, hits = query.test_box(bt.Index64_3D, state, scene[0], scene[1],
                          (scene[2][0], scene[3][0]), 64)
 assert 0 in hits.ids[:int(hits.count)].tolist()
+for engine in ("tree", "linear"):
+    _, got = query.test_box(bt.Index64_3D, state, scene[0], scene[1],
+                            (scene[2][0], scene[3][0]), 64, engine=engine)
+    assert torch.equal(got.ids, hits.ids)
+_, rows = query.test_box_batch(bt.Index64_3D, state, scene[0], scene[1],
+                               (scene[2][:2], scene[3][:2]), 64)
+assert torch.equal(rows.ids[0], hits.ids)
+root, sub = traverse.box_halving_state(bt.Index64_3D, scene[0], scene[1])
+lo, hi = torch.as_tensor(scene[2][0]), torch.as_tensor(scene[3][0])
+_, walk = traverse.test_generic(
+    bt.Index64_3D, state, root, sub,
+    lambda g: torch.all((g[0] <= hi) & (g[1] >= lo), dim=-1), 64)
+assert torch.equal(walk.ids, hits.ids)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "broadphase_tpu"))
 assert not loaded, loaded

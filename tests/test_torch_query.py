@@ -9,7 +9,8 @@ packages, so that both rank the same numbers; the tie scenes make every
 candidate's distance equal, so the winner is the reference's DFS visit
 order (the scenes of tests/test_query.py).  Also: the f32 cell replay and
 the ray intervals bit for bit, max_depth cutoffs, misses, result_cap
-overflow, an overflowed tree's flag, and the engine argument.
+overflow, an overflowed tree's flag, and the engine argument (both
+engines, the 32,768-lane switch and BROADPHASE_QUERY_ENGINE).
 """
 
 import numpy as np
@@ -349,26 +350,49 @@ def test_pick_ray_ties_match_jax(spec, tspec, const, max_depth):
     assert found >= 3
 
 
-def test_engine_argument():
+def test_engine_argument(monkeypatch):
+    """None, "auto", "linear" and "tree" give JAX's result; the engine
+    switches to the tree at 32,768 lanes and honours
+    BROADPHASE_QUERY_ENGINE, as broadphase_tpu.query._engine does; an
+    unknown engine raises."""
     spec, tspec = SPEC_PAIRS[2]
     scene = _scene(spec, 50, seed=1)
-    _, tst = _layers(spec, tspec, scene, "port")
+    jst, tst = _layers(spec, tspec, scene, "port")
     qb = (np.full(3, -10.0, np.float32), np.full(3, 10.0, np.float32))
-    want = tq.test_box_linear(tspec, tst, scene[0], scene[1], qb, 64)[1]
-    for engine in (None, "auto", "linear"):
-        got = tq.test_box(tspec, tst, scene[0], scene[1], qb, 64,
-                          engine=engine)[1]
-        assert torch.equal(got.ids, want.ids)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.test_box(tspec, tst, scene[0], scene[1], qb, 64, engine="tree")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.test_ray(tspec, tst, scene[0], scene[1], qb[0], qb[1], 0.0,
-                    np.inf, 64, engine="tree")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.pick_ray(tspec, tst, scene[0], scene[1], qb[0], qb[1], 1e9,
-                    _get_dist_torch, (torch.zeros(1),), engine="tree")
+    ro, rd = np.full(3, -40.0, np.float32), np.ones(3, np.float32)
+    table = _sphere_table(scene, ro, rd)
+    _, jbox = jq.test_box(spec, jst, scene[0], scene[1], qb, 64,
+                          engine="linear")
+    _, jray = jq.test_ray(spec, jst, scene[0], scene[1], ro, rd, 0.0,
+                          np.inf, 64, engine="linear")
+    _, jpick = jq.pick_ray(spec, jst, scene[0], scene[1], ro, rd, 1e9,
+                           _get_dist_jax, (jnp.asarray(table),),
+                           engine="linear")
+    assert int(jbox.count) > 0 and int(jray.count) > 0
+    for engine in (None, "auto", "linear", "tree"):
+        _assert_same_hits(jbox, tq.test_box(tspec, tst, scene[0], scene[1],
+                                            qb, 64, engine=engine)[1])
+        _assert_same_hits(jray, tq.test_ray(tspec, tst, scene[0], scene[1],
+                                            ro, rd, 0.0, np.inf, 64,
+                                            engine=engine)[1])
+        _assert_same_pick(jpick, tq.pick_ray(
+            tspec, tst, scene[0], scene[1], ro, rd, 1e9, _get_dist_torch,
+            (torch.as_tensor(table),), engine=engine)[1])
+    monkeypatch.delenv("BROADPHASE_QUERY_ENGINE", raising=False)
+    for cap in (8, 32767, 32768, 1 << 20):
+        want = jq._engine(None, cap)
+        assert tq._engine(None, cap) == want
+        assert want == ("tree" if cap >= 32768 else "linear")
+    for env in ("tree", "linear", "auto"):
+        monkeypatch.setenv("BROADPHASE_QUERY_ENGINE", env)
+        for cap in (8, 1 << 20):
+            assert tq._engine(None, cap) == jq._engine(None, cap)
+            assert tq._engine("linear", cap) == "linear"
     with pytest.raises(ValueError, match="unknown query engine"):
         tq.test_box(tspec, tst, scene[0], scene[1], qb, 64, engine="bvh")
+    monkeypatch.setenv("BROADPHASE_QUERY_ENGINE", "bvh")
+    with pytest.raises(ValueError, match="unknown query engine"):
+        tq._engine(None, 8)
 
 
 def test_queries_sort_an_unsorted_layer():
