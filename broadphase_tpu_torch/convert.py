@@ -1,5 +1,5 @@
-"""Carry layer state and tracked scenes between the JAX package and the
-port.
+"""Carry layer state and tracked scenes, single-chip and sharded, between
+the JAX package and the port.
 
 The JAX ``LayerState`` holds keys as u32 columns (``(hi, lo)`` for 64-bit
 specs), u32 ids and aux, and scalar count and flags.  Its fields travel as
@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from .index import IndexSpec, key_from_columns, key_to_columns
-from .layer import LayerState
+from .layer import LayerState, resolve_device
+from .parallel.layer import ShardedLayer, local_state
+from .parallel.update import ShardedTracked
 from .update import TrackedScene, tree_aux_from_signature
 
 
@@ -98,3 +100,77 @@ def tracked_scene_to_numpy(spec: IndexSpec, tracked: TrackedScene
         x = getattr(tracked, name).cpu().numpy()
         out[name] = x.astype(np.uint32) if x.dtype == np.int64 else x
     return out
+
+
+def _rank_device(device, rank: int) -> torch.device:
+    """``device``, or rank ``rank``'s card ``cuda:{rank % device_count}``
+    as the sharded entry points default to; raises where there is no card
+    (``layer.resolve_device``)."""
+    if device is None:
+        device = f"cuda:{rank % max(torch.cuda.device_count(), 1)}"
+    return resolve_device(device)
+
+
+def sharded_layer_from_jax(spec: IndexSpec, fields: Mapping[str, Any],
+                           rank: int, n_dev: int, min_depth: int,
+                           device=None) -> ShardedLayer:
+    """Rank ``rank``'s :class:`~broadphase_tpu_torch.parallel.ShardedLayer`
+    of a JAX ``ShardedLayer`` over ``n_dev`` devices, given as numpy
+    fields with the JAX names (``keys`` the tuple of global key columns,
+    ``ids``, ``aux``, ``counts``, ``invalid_count``, ``overflow``): device
+    ``rank``'s lanes ``[rank * frag, (rank + 1) * frag)`` become the
+    fragment, on ``device`` (default: the rank's card).  A JAX sharded
+    layer does not hold its ``min_depth``: pass the one it was built with
+    (at least ``min_depth_for_devices``)."""
+    device = _rank_device(device, rank)
+    frag = np.asarray(fields["ids"]).shape[0] // n_dev
+    lanes = slice(rank * frag, (rank + 1) * frag)
+
+    def scalar(name, dtype):
+        return torch.tensor(np.asarray(fields[name]).item(), dtype=dtype,
+                            device=device)
+
+    return ShardedLayer(
+        keys=key_from_columns(spec, [np.asarray(c)[lanes]
+                                     for c in fields["keys"]], device),
+        ids=torch.as_tensor(np.asarray(fields["ids"], np.uint32)[lanes]
+                            .astype(np.int64), device=device),
+        aux=torch.as_tensor(np.asarray(fields["aux"], np.uint32)[lanes]
+                            .astype(np.int32), device=device),
+        counts=torch.as_tensor(np.asarray(fields["counts"]).astype(
+            np.int64), device=device),
+        invalid_count=scalar("invalid_count", torch.int64),
+        overflow=scalar("overflow", torch.bool),
+        min_depth=torch.tensor(int(min_depth), dtype=torch.int64))
+
+
+def sharded_tracked_from_jax(spec: IndexSpec, fields: Mapping[str, Any],
+                             rank: int, n_dev: int, min_depth: int,
+                             device=None) -> ShardedTracked:
+    """Rank ``rank``'s :class:`~broadphase_tpu_torch.parallel.ShardedTracked`
+    of a JAX ``ShardedTracked``'s numpy fields: ``layer`` a mapping as
+    :func:`sharded_layer_from_jax` takes, and the global object arrays
+    (``ids``, ``bounds_min``, ``bounds_max``, ``sig_*``), of which the
+    rank keeps its block ``[rank * n / n_dev, (rank + 1) * n / n_dev)``.
+    The fragment's aux before the wide-id gate, which a JAX scene does not
+    hold, is recomputed from the keys, the ids and the signatures
+    (``update.tree_aux_from_signature``).  On ``device``, by default the
+    rank's card."""
+    device = _rank_device(device, rank)
+    lyr = sharded_layer_from_jax(spec, fields["layer"], rank, n_dev,
+                                 min_depth, device)
+
+    def arr(name):
+        x = np.array(fields[name])
+        if x.dtype == np.uint32:
+            x = x.astype(np.int64)
+        return torch.as_tensor(x, device=device)
+
+    ids, sig_tmin = arr("ids"), arr("sig_tmin")
+    step = ids.shape[0] // n_dev
+    objs = slice(rank * step, (rank + 1) * step)
+    tree_aux = tree_aux_from_signature(spec, local_state(lyr, rank), ids,
+                                       sig_tmin)
+    return ShardedTracked(lyr, ids[objs],
+                          *(arr(f)[objs] for f in _TRACKED_ARRAYS),
+                          tree_aux)

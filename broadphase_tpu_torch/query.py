@@ -344,27 +344,33 @@ def _ray_visit_rank(spec: IndexSpec, origin, depth, ray_dir: torch.Tensor
     return rank
 
 
-def _argmin_pick_ranked(spec: IndexSpec, d: torch.Tensor,
-                        keys: torch.Tensor, ids: torch.Tensor, max_dist,
-                        ray_dir, max_depth: Optional[int],
-                        pos: Optional[torch.Tensor] = None) -> PickResult:
+class _PickWinner(NamedTuple):
+    """A pick's winner: its distance, visit rank, tree position and lane."""
+
+    distance: torch.Tensor   # () f32, on the device
+    rank: int                # visit rank (:func:`_ray_visit_rank`)
+    position: int            # tree position
+    lane: int                # lane of the distances the winner came from
+
+
+def _pick_winner(spec: IndexSpec, d: torch.Tensor, keys: torch.Tensor,
+                 max_dist, ray_dir, max_depth: Optional[int],
+                 pos: Optional[torch.Tensor] = None
+                 ) -> Optional[_PickWinner]:
     """The reference's winner: the first visited among the least
     distances, i.e. the lexicographic argmin of (distance, visit rank,
-    tree position).  The lanes at the least distance, their keys and tree
-    positions come to the host in one transfer, and only they are ranked,
-    there (:func:`_ray_visit_rank` on CPU tensors, the depth cut at
-    ``max_depth``).  A lane's tree position is ``pos[lane]``, or the lane
-    itself when ``pos`` is None; positions are distinct, so the winner is
-    unique."""
-    dev = d.device
+    tree position), or None when no lane hits.  The lanes at the least
+    distance, their keys and tree positions come to the host in one
+    transfer, and only they are ranked, there (:func:`_ray_visit_rank` on
+    CPU tensors, the depth cut at ``max_depth``).  A lane's tree position
+    is ``pos[lane]``, or the lane itself when ``pos`` is None; positions
+    are distinct, so the winner is unique."""
     hit = d < max_dist
     d = torch.where(hit, d, float("inf"))
     dmin = d.min()
     lanes = ((d == dmin) & hit).nonzero().squeeze(1)
     if lanes.numel() == 0:
-        false = torch.zeros((), dtype=torch.bool, device=dev)
-        return PickResult(torch.full((), float("inf"), device=dev),
-                          torch.full((), PAD_ID, device=dev), false, false)
+        return None
     host = torch.stack([lanes, keys[lanes],
                         lanes if pos is None else pos[lanes]]).cpu()
     depth = depth_of(spec, host[1])
@@ -372,11 +378,32 @@ def _argmin_pick_ranked(spec: IndexSpec, d: torch.Tensor,
         depth = depth.clamp(max=int(max_depth))
     rank = _ray_visit_rank(spec, origin_of(spec, host[1]), depth,
                            _f32(ray_dir, "cpu"))
-    first = int(host[0][torch.where(rank == rank.min(), host[2],
-                                    _INT64_MAX).argmin()])
-    return PickResult(dmin, ids[first],
+    first = torch.where(rank == rank.min(), host[2], _INT64_MAX).argmin()
+    return _PickWinner(dmin, int(rank.min()), int(host[2][first]),
+                       int(host[0][first]))
+
+
+def _pick_result(win: Optional[_PickWinner], ids: torch.Tensor
+                 ) -> PickResult:
+    """A :class:`PickResult` of a winner over ``ids`` (a miss for None)."""
+    dev = ids.device
+    if win is None:
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        return PickResult(torch.full((), float("inf"), device=dev),
+                          torch.full((), PAD_ID, device=dev), false, false)
+    return PickResult(win.distance, ids[win.lane],
                       torch.ones((), dtype=torch.bool, device=dev),
                       torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def _argmin_pick_ranked(spec: IndexSpec, d: torch.Tensor,
+                        keys: torch.Tensor, ids: torch.Tensor, max_dist,
+                        ray_dir, max_depth: Optional[int],
+                        pos: Optional[torch.Tensor] = None) -> PickResult:
+    """The pick over lanes ``d`` of ``ids``: :func:`_pick_winner`'s
+    distance and id."""
+    return _pick_result(_pick_winner(spec, d, keys, max_dist, ray_dir,
+                                     max_depth, pos), ids)
 
 
 def _distances(get_dist: Callable, args, cand: torch.Tensor) -> torch.Tensor:
@@ -683,6 +710,37 @@ def test_ray_batch(spec: IndexSpec, state: LayerState, system_min,
         rows, _empty_hits(result_cap, dev)))
 
 
+def _pick_batch_winners(spec: IndexSpec, state: LayerState, system_min,
+                        system_max, ray_origins, ray_dirs, max_distance,
+                        get_dist: Callable, get_dist_args,
+                        max_depth: Optional[int], chunk: int):
+    """:func:`pick_ray_batch`'s engine over a sorted ``state``: returns the
+    id-sorted view's ids and each query's :func:`_pick_winner` over them
+    (None on a miss), whose position is the element's tree lane."""
+    dev = state.ids.device
+    ro, rd = _f32(ray_origins, dev), _f32(ray_dirs, dev)
+    Q = ro.shape[0]
+    md = _per_query(max_distance, Q, dev)
+    rd_host = geom.host_f32(ray_dirs)
+    ids_s, pos_s, cmin, cmax, live, keys_s = _id_sorted_view(
+        spec, state, system_min, system_max, max_depth, with_ray=True)
+    zero = torch.zeros(Q, dtype=torch.float32, device=dev)
+    wins = []
+    for c in range(0, Q, chunk):
+        q = slice(c, c + chunk)
+        rmin, rmax = _ray_intervals_cells(spec, cmin, cmax, system_min,
+                                          system_max, ro[q], rd[q], zero[q],
+                                          md[q])
+        for j in range(rmin.shape[0]):
+            i = c + j
+            cand = (rmin[j] < rmax[j]) & (rmin[j] < md[i]) & live
+            d = _distances(get_dist, (ids_s, cand, *(a[i] for a in
+                                                     get_dist_args)), cand)
+            wins.append(_pick_winner(spec, d, keys_s, md[i], rd_host[i],
+                                     max_depth, pos_s))
+    return ids_s, wins
+
+
 def pick_ray_batch(spec: IndexSpec, state: LayerState, system_min,
                    system_max, ray_origins, ray_dirs, max_distance,
                    get_dist: Callable, get_dist_args=(),
@@ -696,26 +754,10 @@ def pick_ray_batch(spec: IndexSpec, state: LayerState, system_min,
     *args_q)`` is called once per query, over the id-sorted elements."""
     state = sort(spec, state)
     dev = state.ids.device
-    ro, rd = _f32(ray_origins, dev), _f32(ray_dirs, dev)
-    Q = ro.shape[0]
-    md = _per_query(max_distance, Q, dev)
-    rd_host = geom.host_f32(ray_dirs)
-    ids_s, pos_s, cmin, cmax, live, keys_s = _id_sorted_view(
-        spec, state, system_min, system_max, max_depth, with_ray=True)
-    zero = torch.zeros(Q, dtype=torch.float32, device=dev)
-    rows = []
-    for c in range(0, Q, chunk):
-        q = slice(c, c + chunk)
-        rmin, rmax = _ray_intervals_cells(spec, cmin, cmax, system_min,
-                                          system_max, ro[q], rd[q], zero[q],
-                                          md[q])
-        for j in range(rmin.shape[0]):
-            i = c + j
-            cand = (rmin[j] < rmax[j]) & (rmin[j] < md[i]) & live
-            d = _distances(get_dist, (ids_s, cand, *(a[i] for a in
-                                                     get_dist_args)), cand)
-            rows.append(_argmin_pick_ranked(spec, d, keys_s, ids_s, md[i],
-                                            rd_host[i], max_depth, pos_s))
+    ids_s, wins = _pick_batch_winners(
+        spec, state, system_min, system_max, ray_origins, ray_dirs,
+        max_distance, get_dist, get_dist_args, max_depth, chunk)
+    rows = [_pick_result(w, ids_s) for w in wins]
     false = torch.zeros(0, dtype=torch.bool, device=dev)
     return state, _flag_truncation(state, _stack(rows, PickResult(
         torch.zeros(0, device=dev), torch.zeros(0, dtype=torch.int64,

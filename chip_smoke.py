@@ -14,7 +14,11 @@ ball pit's frame against the CPU path.  Then the sublinear tree engine at
 1M against the linear engine, the batched queries at 1M against single
 queries, and the generic traversals (test_generic against test_box at
 1M, a non-monotone band and the ordered picks against the CPU path at
-30k, one ordered ray pick at 1M).
+30k, one ordered ray pick at 1M).  Last, the sharded surface at 1M, as
+world 1 under NCCL and as four ranks sharing the card over a gloo group
+(spawned by ``parallel.run_ranks``): step, build + scan, gather / shard,
+the 90% + 10% merge, batched queries and a 1% update against the
+oracle, the single-chip path and a fresh sharded build.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -41,10 +45,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from broadphase_tpu_torch import (Index32_2D, Index64_2D, Index64_3D,
-                                  bench_caps, geom, layer, query, singleq,
-                                  traverse)
+                                  bench_caps, geom, layer, parallel, query,
+                                  singleq, traverse)
 from broadphase_tpu_torch import scene as br_scene
 from broadphase_tpu_torch import oracle as native
 from broadphase_tpu_torch import update as upd
@@ -901,9 +906,10 @@ def scene_digest(scene) -> str:
     return h.hexdigest()[:12]
 
 
-def oracle(native, scene):
+def oracle(native, scene, min_depth=0):
     smin, smax, bmin, bmax, ids = scene
-    keys, oids, _ = native.extend(smin, smax, bmin, bmax, ids)
+    keys, oids, _ = native.extend(smin, smax, bmin, bmax, ids,
+                                  min_depth=min_depth)
     keys, oids = native.sort_tree(keys, oids)
     pairs = native.scan_seq(keys, oids,
                             pair_slack=max(4, 24_000_000 // max(len(oids), 1)))
@@ -1924,6 +1930,300 @@ def traverse_phase(scene_big, dev, fresh):
                       "ms_per_step": o_ms / max(steps, 1)}
 
 
+# ---------------------------------------------------------------------------
+# The sharded surface (parallel/): world 1 under NCCL, then four ranks on
+# the one card over a gloo group, which stages CUDA tensors through the host
+# ---------------------------------------------------------------------------
+
+SHARDED_WORLDS = ((1, "nccl"), (4, "gloo"))
+STEP_KERNELS = ("emit_build", "run_ends", "prep_runs", "expand_pairs_prepped",
+                "stream_compact")
+
+
+def sharded_caps(n: int, world: int) -> dict:
+    """Per-rank capacities at n bench objects over ``world`` ranks: the
+    fragment 25% over an even share of the tree; the scan's pair buffer,
+    which also bounds its raw emissions, 50% over an even share of the
+    single-chip emission buffer; a dedup row the single-chip pair buffer
+    and a quarter on one rank, else twice an even (source, destination)
+    share of that."""
+    frag = -(-bench_caps.tree_capacity(n) * 5 // (4 * world))
+    pairs = -(-bench_caps.emit_capacity(n) * 3 // (2 * world))
+    xcap = bench_caps.pair_capacity(n) * 5 // 4
+    return {"fragment": frag, "bucket": -(-frag // world), "pairs": pairs,
+            "exchange": xcap if world == 1 else -(-2 * xcap // world ** 2)}
+
+
+def sharded_queries(scene, dev):
+    """The sharded phase's queries on the 1M scene: 64 boxes, 64 rays (4
+    axis-parallel), 16 ray-sphere picks aimed at objects, and the picks'
+    per-query distance arguments on ``dev``."""
+    smin, smax, bmin, bmax, ids = scene
+    rng = np.random.default_rng(23)
+    ext = smax - smin
+    lo = (smin + rng.uniform(0, 1, (64, 3)) * (ext - 30)).astype(np.float32)
+    boxes = (lo, (lo + rng.uniform(1, 30, (64, 3))).astype(np.float32))
+    ro = (smin + rng.uniform(0, 1, (64, 3)) * ext).astype(np.float32)
+    rd = rng.normal(size=(64, 3)).astype(np.float32)
+    rd[::16, 0] = 0.0
+    centers = ((bmin + bmax) / 2.0).astype(np.float32)
+    radii = (np.min(bmax - bmin, axis=1) / 2.0).astype(np.float32)
+    pro = ro[:16]
+    pd = (centers[rng.integers(len(ids), size=16)] - pro).astype(np.float32)
+    pdn = (pd / np.linalg.norm(pd, axis=1, keepdims=True)).astype(np.float32)
+    pargs = (torch.as_tensor(centers, device=dev).expand(16, -1, -1),
+             torch.as_tensor(radii, device=dev).expand(16, -1),
+             torch.as_tensor(pro, device=dev),
+             torch.as_tensor(pdn, device=dev))
+    return boxes, (ro, rd), (pro, pd), pargs
+
+
+def fragments_equal(a, b) -> bool:
+    """Two ranks' fragments: live keys, ids and aux, counts and flags."""
+    c = int(a.counts[dist.get_rank()])
+    return (torch.equal(a.counts, b.counts)
+            and all(torch.equal(x[:c], y[:c]) for x, y in zip(a[:3], b[:3]))
+            and int(a.invalid_count) == int(b.invalid_count)
+            and bool(a.overflow) == bool(b.overflow))
+
+
+def rank_ms(fn, reps: int) -> list:
+    """Host-clock times of fn() in ms, every rank starting together (a
+    barrier) and each call ended by a synchronize."""
+    walls = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def sent_bytes() -> int:
+    return parallel.scan.exchange.bytes + parallel.scan.all_gather_rows.bytes
+
+
+def sharded_rank(rank, device, n, reps):
+    """One rank of the sharded phase at n bench objects: the step, the
+    persistent layer (build, scan, gather and shard, the 90% + 10% merge,
+    the queries) and a 1% update, each path's kernel launches counted from
+    0.  Checks what one rank can check; returns the rest (rank 0's pairs,
+    tree and query answers) for the parent to hold against the
+    single-chip path and the oracle."""
+    _, world = parallel.scan.world()
+    caps = sharded_caps(n, world)
+    scene = bench_caps.bench_scene(3, n)
+    smin, smax = scene[0], scene[1]
+    bmin, bmax, ids = (torch.as_tensor(x, device=device) for x in (
+        scene[2], scene[3], scene[4].astype(np.int64)))
+    shard = parallel.object_shard
+    mine = (shard(bmin), shard(bmax), shard(ids))
+    out = {"launches": {}, "ms": {}, "bytes": {}, "device_ms": {}}
+
+    # the step
+    step = parallel.make_sharded_step(
+        SPEC, bucket_capacity=caps["bucket"], pair_capacity=caps["pairs"],
+        exchange_capacity=caps["exchange"])
+    reset_launches()
+    sent = sent_bytes()
+    res = step(smin, smax, *mine)
+    out["launches"]["sharded_step"] = read_launches()
+    out["bytes"]["step"] = sent_bytes() - sent
+    check(not bool(res.overflow), f"sharded step, world {world}: overflow")
+    pairs = parallel.gather_pairs(res)
+    out["shard_counts"] = res.shard_counts.tolist()
+    out["ms"]["step"] = rank_ms(lambda: step(smin, smax, *mine), reps)
+    layers, ops = device_ms_by_layer(lambda: step(smin, smax, *mine),
+                                     reps=1)
+    out["device_ms"]["step"] = sum(layers.values())
+    out["step_profile"] = (layers, ops)
+
+    # the persistent layer
+    build = parallel.make_build_sharded(SPEC,
+                                        fragment_capacity=caps["fragment"])
+    scan = parallel.make_scan_sharded(SPEC, pair_capacity=caps["pairs"],
+                                      exchange_capacity=caps["exchange"])
+    merge = parallel.make_merge_sharded(SPEC)
+    box, ray, make_pick = parallel.make_queries_sharded(
+        SPEC, result_cap=QUERY_CAP)
+    boxes, rays, picks, pargs = sharded_queries(scene, device)
+    cut = n * 9 // 10
+    reset_launches()
+    sent = sent_bytes()
+    lyr = build(smin, smax, *mine)
+    sres = scan(lyr)
+    out["bytes"]["build_scan"] = sent_bytes() - sent
+    static = build(smin, smax, shard(bmin[:cut]), shard(bmax[:cut]),
+                   shard(ids[:cut]))
+    dynamic = build(smin, smax, shard(bmin[cut:]), shard(bmax[cut:]),
+                    shard(ids[cut:]))
+    merged = merge(static, dynamic)
+    answers = {"box": box(lyr, smin, smax, boxes),
+               "ray": ray(lyr, smin, smax, *rays, 0.0, np.inf),
+               "pick": make_pick(ray_sphere)(lyr, smin, smax, *picks, 1e9,
+                                             pargs)}
+    out["launches"]["sharded_layer"] = read_launches()
+    check(not bool(lyr.overflow) and not bool(sres.overflow)
+          and not bool(merged.overflow),
+          f"sharded layer, world {world}: overflow")
+    check(np.array_equal(parallel.gather_pairs(sres), pairs),
+          f"sharded layer, world {world}: the scan's pairs differ from the "
+          "step's")
+    check(fragments_equal(merged, lyr), f"sharded merge, world {world}: "
+          "the 90% + 10% merge differs from the fresh sharded build")
+    gathered = parallel.gather_layer(SPEC, lyr)
+    back = parallel.shard_layer(SPEC, gathered,
+                                fragment_capacity=lyr.ids.shape[0])
+    check(all(torch.equal(x, y) for x, y in zip(back[:4], lyr[:4])),
+          f"sharded layer, world {world}: shard_layer(gather_layer) is not "
+          "the fragment")
+    out["ms"]["scan"] = rank_ms(lambda: scan(lyr), reps)
+    layers, _ = device_ms_by_layer(lambda: scan(lyr), reps=1)
+    out["device_ms"]["scan"] = sum(layers.values())
+
+    # the update at 1% churn
+    churn_cap, obj_cap = bench_caps.update_caps(n, 0.01)
+    A, B = motion(scene, 0.01, device)
+    tracked = parallel.make_build_tracked_sharded(
+        SPEC, fragment_capacity=caps["fragment"])(
+            smin, smax, shard(A[0]), shard(A[1]), mine[2])
+    update = parallel.make_update_sharded(SPEC, churn_cap=churn_cap,
+                                          obj_cap=obj_cap)
+    reset_launches()
+    sent = sent_bytes()
+    moved = update(tracked, smin, smax, shard(B[0]), shard(B[1]))
+    out["launches"]["sharded_update"] = read_launches()
+    out["bytes"]["update"] = sent_bytes() - sent
+    fresh = build(smin, smax, shard(B[0]), shard(B[1]), mine[2])
+    check(not bool(moved.layer.overflow) and fragments_equal(
+        moved.layer, fresh) and torch.equal(moved.layer.aux, fresh.aux),
+          f"sharded update 1%, world {world}: differs from a fresh sharded "
+          "build")
+    frames = {"tracked": moved, "k": 0}
+
+    def next_frame():
+        frames["k"] += 1
+        bounds = A if frames["k"] % 2 else B
+        frames["tracked"] = update(frames["tracked"], smin, smax,
+                                   shard(bounds[0]), shard(bounds[1]))
+
+    out["ms"]["update"] = rank_ms(next_frame, reps)
+    check(not bool(frames["tracked"].layer.overflow),
+          f"sharded update 1%, world {world}: overflow in the timed frames")
+    if rank == 0:
+        cnt = int(gathered.count)
+        out["pairs"] = pairs
+        out["tree"] = tuple(x[:cnt].cpu().numpy() for x in gathered[:3])
+        out["answers"] = answers
+    return out
+
+
+def sharded_phase(scene_big, dev, state, want, tree_cap):
+    """The sharded surface at 1M on the bench scene, as world 1 under NCCL
+    and as four ranks over gloo on the one card: the step and the
+    persistent layer's scan against the oracle and the single-chip step at
+    the world's min_depth, the gathered tree against the single-chip
+    build, the queries against the single-chip batched queries; the merge,
+    the gather / shard round trip and the 1% update checked by each rank.
+    Returns (launches per route summed over ranks and worlds, timings)."""
+    smin, smax = scene_big[0], scene_big[1]
+    scene_t = to_device(scene_big, dev)
+    routes = {r: dict.fromkeys(KERNELS, 0) for r in (
+        "sharded_step", "sharded_layer", "sharded_update")}
+    summary = {}
+    for world, backend in SHARDED_WORLDS:
+        t0 = time.perf_counter()
+        ranks = parallel.run_ranks(sharded_rank, world, backend, None,
+                                   len(scene_big[4]), 5)
+        md = parallel.min_depth_for_devices(SPEC, world)
+        if md == 0:
+            ref, ref_pairs = state, want
+        else:
+            ref = layer.build(SPEC, *scene_t, min_depth=md,
+                              out_capacity=tree_cap)
+            okeys, oids, ref_pairs = oracle(native, scene_big, md)
+            keys, ids, _ = layer.tree_to_numpy(SPEC, ref)
+            check(np.array_equal(keys, okeys) and np.array_equal(ids, oids),
+                  f"single-chip build at min_depth {md} differs from the "
+                  "oracle's")
+            cap = sharded_caps(len(scene_big[4]), 1)["pairs"]
+            _, res = layer.scan(SPEC, ref, cap, emit_capacity=cap)
+            check(np.array_equal(layer.scan_result_to_numpy(res),
+                                 ref_pairs), f"single-chip scan at "
+                  f"min_depth {md} differs from the oracle's")
+        label = f"sharded world {world} ({backend})"
+        got = ranks[0]
+        check(np.array_equal(got["pairs"], ref_pairs),
+              f"{label}: {got['pairs'].shape[0]} pairs differ from the "
+              f"oracle's and the single-chip step's {ref_pairs.shape[0]} "
+              f"at min_depth {md}")
+        cnt = int(ref.count)
+        check(all(np.array_equal(g, w[:cnt].cpu().numpy())
+                  for g, w in zip(got["tree"], ref[:3])),
+              f"{label}: gather_layer differs from the single-chip build at "
+              f"min_depth {md}")
+        boxes, rays, picks, pargs = sharded_queries(scene_big, dev)
+        want_q = {
+            "box": query.test_box_batch(SPEC, ref, smin, smax, boxes,
+                                        QUERY_CAP)[1],
+            "ray": query.test_ray_batch(SPEC, ref, smin, smax, *rays, 0.0,
+                                        np.inf, QUERY_CAP)[1],
+            "pick": query.pick_ray_batch(SPEC, ref, smin, smax, *picks, 1e9,
+                                         ray_sphere, pargs)[1]}
+        for kind, w in want_q.items():
+            g = got["answers"][kind]
+            check(all(np.array_equal(x, y.cpu().numpy())
+                      for x, y in zip(g, w)),
+                  f"{label}: {kind} queries differ from the single-chip "
+                  "batched queries")
+        for route in routes:
+            for rank in ranks:
+                for k, v in rank["launches"][route].items():
+                    routes[route][k] += v
+            need = ("merge_cancel_compact", "stream_compact") \
+                if route == "sharded_update" else STEP_KERNELS
+            if route == "sharded_layer":
+                need += ("merge_cancel_compact",)
+            check(all(sum(r["launches"][route][k] for r in ranks) > 0
+                      for k in need),
+                  f"{label}: a kernel of {route} was not launched: "
+                  f"{[r['launches'][route] for r in ranks]}")
+        ms = {k: [p50(r["ms"][k]) for r in ranks] for k in got["ms"]}
+        summary.update({f"world{world}_{k}_p50": max(v)
+                        for k, v in ms.items()})
+        clock = "gloo staging CUDA tensors through the host" \
+            if backend == "gloo" else "NCCL"
+        print(f"{label}: the step's and the scan's {ref_pairs.shape[0]} "
+              f"pairs equal the oracle and the single-chip step at min_depth"
+              f" {md}; gather_layer equals the single-chip build ({cnt} "
+              f"cells); 64 boxes, 64 rays and 16 picks "
+              f"({int(got['answers']['pick'].found.sum())} found) equal the "
+              f"single-chip batched queries; the 90% + 10% merge, the "
+              f"gather / shard round trip and the 1% update equal the "
+              f"fresh sharded build on every rank; overflow nowhere; "
+              f"classes per rank {got['shard_counts']}")
+        print(f"{label} timings ({clock}; host clock, barrier to "
+              f"synchronize, p50 of 5 per rank): step "
+              f"{[round(x, 3) for x in ms['step']]} ms, scan "
+              f"{[round(x, 3) for x in ms['scan']]} ms, update 1% "
+              f"{[round(x, 3) for x in ms['update']]} ms; device busy per "
+              f"rank (profiler, one call): step "
+              f"{[round(r['device_ms']['step'], 3) for r in ranks]} ms, scan "
+              f"{[round(r['device_ms']['scan'], 3) for r in ranks]} ms; "
+              f"bytes each rank sent (all_to_all + all_gather): step "
+              f"{[r['bytes']['step'] for r in ranks]}, build + scan "
+              f"{[r['bytes']['build_scan'] for r in ranks]}, update "
+              f"{[r['bytes']['update'] for r in ranks]}; launches per rank "
+              f"{[r['launches'] for r in ranks]}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        layers, ops = got["step_profile"]
+        print(f"profile {label} step, rank 0: {ops:.0f} device operations; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          sorted(layers.items(), key=lambda kv: -kv[1])))
+    return routes, summary
+
+
 def main() -> int:
     # 1. device
     t_start = time.perf_counter()
@@ -2206,6 +2506,10 @@ def main() -> int:
         "batch_queries", batch_query_phase, scene_big, dev, state)
     routes["traverse"], surface["traverse"] = timed_phase(
         "traverse", traverse_phase, scene_big, dev, state)
+    # 20. the sharded surface: world 1 under NCCL, four ranks over gloo
+    sharded_routes, surface["sharded"] = timed_phase(
+        "sharded", sharded_phase, scene_big, dev, state, want, tree_cap)
+    routes.update(sharded_routes)
     print("surface summary: " + json.dumps(
         {k: {m: round(v, 3) for m, v in r.items()}
          for k, r in surface.items()}) + "; seconds per phase " + json.dumps(

@@ -1,8 +1,11 @@
 """The port stands without JAX: ``broadphase_tpu_torch`` and ``chip_smoke``
 import, and a small step, update, extend + merge, BR_SCENE round trip and
-box query (both engines, batched, and the generic walk) run, in a process
-where importing ``jax``, ``jaxlib`` or ``broadphase_tpu`` raises; no file
-of the port loads anything of ``broadphase_tpu/`` by path; its copies of
+box query (both engines, batched, and the generic walk) run, and a
+sharded step over two gloo ranks started by ``parallel.run_ranks`` (with
+the tests' rank bodies, ``torch_rank_bodies.py``), in a process (and
+ranks) where importing ``jax``, ``jaxlib`` or ``broadphase_tpu`` raises;
+no file of the port or of the rank bodies loads anything of
+``broadphase_tpu/`` by path; its copies of
 the bench capacities, the bench scene and the C++ oracle bindings give
 what the originals give.  ``chip_smoke.py`` fails without a CUDA card, and
 when it stands alone without the repository.
@@ -26,6 +29,8 @@ from broadphase_tpu_torch import bench_caps, oracle
 
 REPO = Path(__file__).resolve().parent.parent
 
+# Run from a file, so that the ranks the script spawns re-import it as
+# their main module: the blocker holds in them too.
 _BLOCKED_RUN = r"""
 import sys
 
@@ -36,66 +41,96 @@ class _Block:
         return None
 
 sys.meta_path.insert(0, _Block())
-sys.path.insert(0, sys.argv[1])
+sys.path[:0] = sys.argv[1:3]
 
-import numpy as np
-import torch
-import broadphase_tpu_torch as bt
-import chip_smoke
-from broadphase_tpu_torch import (bench_caps, convert, layer, oracle, query,
-                                  scene as br_scene, singleq, traverse,
-                                  update)
-from broadphase_tpu_torch.ops import _cuda, build, compact, expand, expand2
-from broadphase_tpu_torch.ops import merge, prep, runends, search
 
-assert bench_caps.tree_capacity(1_000_000) == 3_700_736
-scene = bench_caps.bench_scene(3, 500)
-state = layer.build(bt.Index64_3D, *scene, out_capacity=8 * 500,
-                    device="cpu")
-_, res = layer.scan(bt.Index64_3D, state, 64 * 500)
-keys, ids, _ = oracle.extend(*scene)
-keys, ids = oracle.sort_tree(keys, ids)
-assert np.array_equal(layer.scan_result_to_numpy(res),
-                      oracle.scan_seq(keys, ids))
-tracked = update.build_tracked(bt.Index64_3D, *scene, out_capacity=8 * 500,
-                               device="cpu")
-moved = update.update(bt.Index64_3D, tracked, scene[0], scene[1],
-                      scene[2] + 3.0, scene[3] + 3.0, 8 * 500)
-assert not bool(moved.state.overflow)
-half = layer.extend(bt.Index64_3D, layer.make_layer(bt.Index64_3D, 8 * 500,
-                                                    device="cpu"),
-                    scene[0], scene[1], scene[2][:250], scene[3][:250],
-                    scene[4][:250])
-rest = layer.build(bt.Index64_3D, scene[0], scene[1], scene[2][250:],
-                   scene[3][250:], scene[4][250:], device="cpu")
-merged = layer.sort(bt.Index64_3D, layer.merge(bt.Index64_3D, half, rest))
-assert layer.layers_equal(bt.Index64_3D, merged, state)
-restored = layer.layer_from_scene_layer(
-    bt.Index64_3D, br_scene.loads(br_scene.dumps(br_scene.Scene(
-        scene[0], scene[1], scene[2], scene[3], scene[4],
-        layer.layer_to_scene_layer(bt.Index64_3D, state)))).layer,
-    capacity=8 * 500, device="cpu")
-assert layer.layers_equal(bt.Index64_3D, restored, state)
-_, hits = query.test_box(bt.Index64_3D, state, scene[0], scene[1],
-                         (scene[2][0], scene[3][0]), 64)
-assert 0 in hits.ids[:int(hits.count)].tolist()
-for engine in ("tree", "linear"):
-    _, got = query.test_box(bt.Index64_3D, state, scene[0], scene[1],
-                            (scene[2][0], scene[3][0]), 64, engine=engine)
-    assert torch.equal(got.ids, hits.ids)
-_, rows = query.test_box_batch(bt.Index64_3D, state, scene[0], scene[1],
-                               (scene[2][:2], scene[3][:2]), 64)
-assert torch.equal(rows.ids[0], hits.ids)
-root, sub = traverse.box_halving_state(bt.Index64_3D, scene[0], scene[1])
-lo, hi = torch.as_tensor(scene[2][0]), torch.as_tensor(scene[3][0])
-_, walk = traverse.test_generic(
-    bt.Index64_3D, state, root, sub,
-    lambda g: torch.all((g[0] <= hi) & (g[1] >= lo), dim=-1), 64)
-assert torch.equal(walk.ids, hits.ids)
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "broadphase_tpu"))
-assert not loaded, loaded
-print("JAXFREE-OK")
+def main():
+    _single_chip()
+    _sharded()
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "broadphase_tpu"))
+    assert not loaded, loaded
+    print("JAXFREE-OK")
+
+
+def _sharded():
+    import numpy as np
+    from broadphase_tpu_torch import bench_caps, layer, parallel
+    import broadphase_tpu_torch as bt
+    import torch_rank_bodies as bodies
+
+    scene = bench_caps.bench_scene(3, 500)
+    case = {"spec": "Index64_3D", "scene": scene,
+            "step": {"bucket_capacity": 8 * 500, "pair_capacity": 64 * 500}}
+    ranks = parallel.run_ranks(bodies.drive_step, 2, "gloo", "cpu", [case])
+    md = parallel.min_depth_for_devices(bt.Index64_3D, 2)
+    state = layer.build(bt.Index64_3D, *scene, min_depth=md, device="cpu")
+    _, res = layer.scan(bt.Index64_3D, state, 64 * 500)
+    want = layer.scan_result_to_numpy(res)
+    for rank in ranks:
+        assert not rank[0]["result"].overflow
+        assert np.array_equal(rank[0]["pairs"], want)
+
+
+def _single_chip():
+    import numpy as np
+    import torch
+    import broadphase_tpu_torch as bt
+    import chip_smoke
+    from broadphase_tpu_torch import (bench_caps, convert, layer, oracle, query,
+                                      scene as br_scene, singleq, traverse,
+                                      update)
+    from broadphase_tpu_torch.ops import _cuda, build, compact, expand, expand2
+    from broadphase_tpu_torch.ops import merge, prep, runends, search
+
+    assert bench_caps.tree_capacity(1_000_000) == 3_700_736
+    scene = bench_caps.bench_scene(3, 500)
+    state = layer.build(bt.Index64_3D, *scene, out_capacity=8 * 500,
+                        device="cpu")
+    _, res = layer.scan(bt.Index64_3D, state, 64 * 500)
+    keys, ids, _ = oracle.extend(*scene)
+    keys, ids = oracle.sort_tree(keys, ids)
+    assert np.array_equal(layer.scan_result_to_numpy(res),
+                          oracle.scan_seq(keys, ids))
+    tracked = update.build_tracked(bt.Index64_3D, *scene, out_capacity=8 * 500,
+                                   device="cpu")
+    moved = update.update(bt.Index64_3D, tracked, scene[0], scene[1],
+                          scene[2] + 3.0, scene[3] + 3.0, 8 * 500)
+    assert not bool(moved.state.overflow)
+    half = layer.extend(bt.Index64_3D, layer.make_layer(bt.Index64_3D, 8 * 500,
+                                                        device="cpu"),
+                        scene[0], scene[1], scene[2][:250], scene[3][:250],
+                        scene[4][:250])
+    rest = layer.build(bt.Index64_3D, scene[0], scene[1], scene[2][250:],
+                       scene[3][250:], scene[4][250:], device="cpu")
+    merged = layer.sort(bt.Index64_3D, layer.merge(bt.Index64_3D, half, rest))
+    assert layer.layers_equal(bt.Index64_3D, merged, state)
+    restored = layer.layer_from_scene_layer(
+        bt.Index64_3D, br_scene.loads(br_scene.dumps(br_scene.Scene(
+            scene[0], scene[1], scene[2], scene[3], scene[4],
+            layer.layer_to_scene_layer(bt.Index64_3D, state)))).layer,
+        capacity=8 * 500, device="cpu")
+    assert layer.layers_equal(bt.Index64_3D, restored, state)
+    _, hits = query.test_box(bt.Index64_3D, state, scene[0], scene[1],
+                             (scene[2][0], scene[3][0]), 64)
+    assert 0 in hits.ids[:int(hits.count)].tolist()
+    for engine in ("tree", "linear"):
+        _, got = query.test_box(bt.Index64_3D, state, scene[0], scene[1],
+                                (scene[2][0], scene[3][0]), 64, engine=engine)
+        assert torch.equal(got.ids, hits.ids)
+    _, rows = query.test_box_batch(bt.Index64_3D, state, scene[0], scene[1],
+                                   (scene[2][:2], scene[3][:2]), 64)
+    assert torch.equal(rows.ids[0], hits.ids)
+    root, sub = traverse.box_halving_state(bt.Index64_3D, scene[0], scene[1])
+    lo, hi = torch.as_tensor(scene[2][0]), torch.as_tensor(scene[3][0])
+    _, walk = traverse.test_generic(
+        bt.Index64_3D, state, root, sub,
+        lambda g: torch.all((g[0] <= hi) & (g[1] >= lo), dim=-1), 64)
+    assert torch.equal(walk.ids, hits.ids)
+
+
+if __name__ == "__main__":
+    main()
 """
 
 
@@ -105,8 +140,11 @@ def _env():
     return env
 
 
-def test_port_and_smoke_import_without_jax():
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(REPO)],
+def test_port_and_smoke_import_without_jax(tmp_path):
+    script = tmp_path / "blocked_run.py"
+    script.write_text(_BLOCKED_RUN)
+    out = subprocess.run([sys.executable, str(script), str(REPO),
+                          str(REPO / "tests")],
                          capture_output=True, text=True, timeout=300,
                          env=_env(), cwd=REPO)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -161,14 +199,14 @@ _CITATION = re.compile(r"^broadphase_tpu/[\w/]+\.py:\d+$")
 
 def _python_files():
     return sorted((REPO / "broadphase_tpu_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py", REPO / "tests" / "torch_rank_bodies.py"]
 
 
 @pytest.mark.parametrize("path", _python_files(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_path_into_the_jax_package(path):
-    """No module of the port, and not chip_smoke.py, imports JAX or the JAX
-    package, names a path inside ``broadphase_tpu/`` other than in a
+    """No module of the port, not chip_smoke.py and not the tests' rank
+    bodies imports JAX or the JAX package, names a path inside ``broadphase_tpu/`` other than in a
     file:line citation, or loads a module from a file."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
