@@ -37,6 +37,12 @@ def bounds_contains(amin, amax, bmin, bmax) -> torch.Tensor:
     return torch.all((amin <= bmin) & (amax >= bmax), dim=-1)
 
 
+def bounds_center(bmin, bmax) -> torch.Tensor:
+    """cgmath midpoint, ``min + (max - min) * 0.5`` in f32
+    (``broadphase_tpu.geom``)."""
+    return bmin + (bmax - bmin) * 0.5
+
+
 def to_local(system_min, system_max, pts) -> torch.Tensor:
     """Quantize f32 points (..., dim) to u32 local coordinates (int64)."""
     system_min = torch.as_tensor(system_min, dtype=torch.float32,
@@ -51,6 +57,19 @@ def to_local(system_min, system_max, pts) -> torch.Tensor:
     v = v.clamp(0.0, RANGE_MAX_F32)
     v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
     return v.to(torch.int64)
+
+
+def to_global(system_min, system_max, pts) -> torch.Tensor:
+    """Inverse of :func:`to_local` (``broadphase_tpu.geom``): u32 local
+    coordinates (..., dim) in int64 to f32 global points, ``min + local /
+    RANGE * size`` in that order of f32 operations."""
+    dev = pts.device
+    system_min = torch.as_tensor(system_min, dtype=torch.float32, device=dev)
+    system_max = torch.as_tensor(system_max, dtype=torch.float32, device=dev)
+    size = system_max - system_min
+    local = (pts & U32_MASK).to(torch.float32)
+    return system_min + local / torch.tensor(
+        RANGE_MAX_F32, dtype=torch.float32, device=dev) * size
 
 
 def truncate_to_depth(x: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:

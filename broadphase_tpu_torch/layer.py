@@ -421,15 +421,26 @@ def merge(spec: IndexSpec, state: LayerState, other: LayerState
 # scan
 # ---------------------------------------------------------------------------
 
-def canonical_pairs(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor
+# the prefixes of scan_pairs() that ``tools/profile_step.py`` times, in
+# order (after its own "build")
+SCAN_STAGES = ("run_ends", "prep", "gather", "compact", "sort_pairs",
+               "full_stream")
+
+
+def canonical_pairs(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor,
+                    _stage: str = "full_stream"
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort the valid (a, b) pairs, drop duplicates, compact to the front.
 
     One int64 sort key ``((a - 2^31) << 32) | b`` orders like the unsigned
     (a, b) tuple; invalid lanes take ``INT64_MAX``, which decodes to
-    (PAD, PAD) and sorts last.  Returns (a, b, count), PAD past count."""
+    (PAD, PAD) and sorts last.  Returns (a, b, count), PAD past count;
+    ``_stage`` "sort_pairs" returns a sum over the sorted keys instead
+    (:func:`scan_pairs`)."""
     key = torch.where(valid, (a - (1 << 31)) * (1 << 32) + b, PAD_KEY)
     key = torch.sort(key).values
+    if _stage == "sort_pairs":
+        return key[::4096].sum()
     a_s = (key >> 32) + (1 << 31)
     b_s = key & 0xFFFF_FFFF
     prev = torch.cat([key[:1] ^ 1, key[:-1]])
@@ -439,10 +450,11 @@ def canonical_pairs(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor
 
 
 def _finish_pairs(a, b, valid, pair_capacity: int, emit_capacity: int,
-                  pair_overflow, extra_overflow, canonical: bool
-                  ) -> ScanResult:
+                  pair_overflow, extra_overflow, canonical: bool,
+                  _stage: str = "full_stream") -> ScanResult:
     """Emission compaction (when the emission buffer is wider than the pair
-    buffer, or for ``canonical=False``) and the canonical sort + dedup."""
+    buffer, or for ``canonical=False``) and the canonical sort + dedup;
+    ``_stage`` as :func:`scan_pairs` says."""
     if not canonical or emit_capacity > pair_capacity:
         (ca, cb), ccnt = stream_compact(valid, (a, b))
         a, b = ca[:pair_capacity], cb[:pair_capacity]
@@ -451,6 +463,10 @@ def _finish_pairs(a, b, valid, pair_capacity: int, emit_capacity: int,
         if not canonical:
             return ScanResult(a, b, ccnt.clamp(max=pair_capacity),
                               pair_overflow | extra_overflow)
+    if _stage == "compact":
+        return a[::4096].sum(), b[::4096].sum()
+    if _stage == "sort_pairs":
+        return canonical_pairs(a, b, valid, _stage)
     out_a, out_b, count = canonical_pairs(a, b, valid)
     return ScanResult(out_a, out_b, count, pair_overflow | extra_overflow)
 
@@ -511,7 +527,8 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                aux: Optional[torch.Tensor] = None,
                emit_capacity: Optional[int] = None,
                nested_ids: bool = False, canonical: bool = True,
-               expand: str = "v3") -> ScanResult:
+               expand: str = "v3", _stage: str = "full_stream"
+               ) -> ScanResult:
     """Pair expansion over a sorted tree (``broadphase_tpu.layer.scan_pairs``,
     its kernel path).
 
@@ -536,9 +553,19 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     same entries without rule bytes, and the v2 expansion kernel
     (``ops/expand.py``) expands them with no emit-once rule, so duplicate
     emissions survive into ``canonical=False`` output.
+
+    ``_stage`` (``tools/profile_step.py``) cuts the canonical scan short
+    after a prefix of :data:`SCAN_STAGES` and returns small sums over that
+    stage's output, so that nothing of the prefix is skipped: "run_ends"
+    (k2), "prep" (k3), "gather" (the expansion), "compact" (k5 where the
+    emission buffer is wider than the pair buffer, else nothing more than
+    "gather") and "sort_pairs" (the canonical sort).
     """
     if expand not in ("v2", "v3"):
         raise ValueError(f"expand must be 'v2' or 'v3', got {expand!r}")
+    if _stage not in SCAN_STAGES:
+        raise ValueError(f"_stage must be one of {SCAN_STAGES}, got "
+                         f"{_stage!r}")
     cap = ids.shape[0]
     dev = ids.device
     emit_cap = max(int(emit_capacity) if emit_capacity is not None
@@ -555,7 +582,11 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
         keys, ids, count = _drop_nested_same_id(spec, keys, ids, count)
         aux = None      # partial same-id blocks: the aux bits are stale
     e, ameta, bmeta = scan_pass1(spec, keys, aux, rules=expand == "v3")
+    if _stage == "run_ends":
+        return e[::4096].sum()
     sv, ab, bid, bm, m, total, wrapped = prep_runs(e, ids, bmeta, count)
+    if _stage == "prep":
+        return total, sv[::4096].sum()
     if expand == "v2":
         # broadphase_tpu/layer.py:980-998: the same runs and prefix sum,
         # expanded with no rule
@@ -566,6 +597,8 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
         a, b = expand_pairs_prepped(ids, ameta, sv, ab, bid, bm, m, total,
                                     emit_cap, max_id < _RULE_ID_BOUND,
                                     spec.dim)
+    if _stage == "gather":
+        return a[::4096].sum(), b[::4096].sum()
     # dropped emissions and slots >= total are PAD on both sides
     valid = a != b
     if filter_fn is not None:
@@ -573,7 +606,7 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                                         device=dev)
     return _finish_pairs(a, b, valid, pair_capacity, emit_cap,
                          wrapped | (total > emit_cap), extra_overflow,
-                         canonical)
+                         canonical, _stage)
 
 
 def scan(spec: IndexSpec, state: LayerState, pair_capacity: int,

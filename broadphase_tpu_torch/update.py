@@ -188,12 +188,18 @@ class _Churn(NamedTuple):
     overflow: torch.Tensor       # () bool: cell, churn, obj or id overflow
 
 
+# the prefixes of update() that ``tools/profile_update.py`` times, in order
+STAGES = ("emit_diff", "extract", "churn", "merge", "full")
+
+
 def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
                  system_max, bmin_f, bmax_f, churn_cap: int,
-                 slots_per_axis: int, obj_cap: int, wide_ids: bool
-                 ) -> _Churn:
+                 slots_per_axis: int, obj_cap: int, wide_ids: bool,
+                 _stage: str = "full"):
     """Signature diff, object-granular extraction and the sorted churn
-    buffer (tombstones and inserts) of one frame."""
+    buffer (tombstones and inserts) of one frame: a :class:`_Churn`, or
+    for the profiler prefixes ``_stage`` "emit_diff", "extract" and
+    "churn" a tuple of small reductions at that cut (:func:`update`)."""
     C, OC = churn_cap, obj_cap
     n = tracked.ids.shape[0]
     dev = tracked.ids.device
@@ -219,6 +225,8 @@ def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
     ins_cnt = torch.where(changed, new_cnt, 0).sum()
     obj_cnt = changed.sum(dtype=torch.int64)
     churn_ovf = (tomb_cnt > C) | (ins_cnt > C) | (obj_cnt > OC)
+    if _stage == "emit_diff":
+        return tomb_cnt, ins_cnt, obj_cnt, cell_ovf
 
     # the changed objects' indices (one 1-column compaction over the n
     # object lanes), then emission of only their old and new rows
@@ -256,6 +264,9 @@ def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
     i_key, i_meta, i_keep = _churn_stream(
         spec, ids_rows, aux_row, new_keys, new_v & row_live[:, None],
         0)                                                   # inserts
+    if _stage == "extract":
+        return (tomb_cnt, t_key[::64].sum(), i_key[::64].sum(),
+                t_keep.sum(), i_keep.sum())
 
     # compact the 2*OC*S churn lanes to the 2C merge budget, then order the
     # buffer by (key, meta): meta's (id, aux, tag) lands each tombstone
@@ -267,6 +278,8 @@ def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
     c_key, c_meta = to_length(c_key, 2 * C), to_length(c_meta, 2 * C)
     order = torch.sort(c_meta, stable=True).indices
     order = order[torch.sort(c_key[order], stable=True).indices]
+    if _stage == "churn":
+        return c_key[order][::64].sum(), c_meta[order][::64].sum()
     return _Churn((depth_n, tmin_n, tmax_n, cont_n), c_key[order],
                   c_meta[order], c_cnt.clamp(max=2 * C),
                   cell_ovf | churn_ovf | pack_ovf)
@@ -274,8 +287,8 @@ def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
 
 def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
            bounds_min, bounds_max, churn_cap: int, slots_per_axis: int = 2,
-           obj_cap: Optional[int] = None, wide_ids: bool = False
-           ) -> TrackedScene:
+           obj_cap: Optional[int] = None, wide_ids: bool = False,
+           _stage: str = "full") -> TrackedScene:
     """Advance the tree to this frame's bounds by signature diff and
     tombstone merge.
 
@@ -285,7 +298,17 @@ def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
     (default ``churn_cap``) the changed objects.  Returns a TrackedScene
     whose state equals ``layer.build`` on the new bounds (unique-id
     scenes), or has ``overflow`` set.
+
+    ``_stage`` (``tools/profile_update.py``) cuts the update short after a
+    prefix of :data:`STAGES` and returns small reductions there, so that
+    nothing of the prefix is skipped: "emit_diff" the churn counts
+    ``(tomb_cnt, ins_cnt, obj_cnt, cell_ovf)`` as the JAX package returns
+    them; "extract", "churn" and "merge" sums over the churn streams, the
+    sorted churn buffer and the merged columns.  The merge kernel (k6)
+    also cancels and compacts, so "merge" is nearly "full".
     """
+    if _stage not in STAGES:
+        raise ValueError(f"_stage must be one of {STAGES}, got {_stage!r}")
     state = tracked.state
     cap = capacity_of(state)
     dev = tracked.ids.device
@@ -293,7 +316,9 @@ def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
     churn = _frame_churn(spec, tracked, system_min, system_max, bmin_f,
                          bmax_f, churn_cap, slots_per_axis,
                          obj_cap if obj_cap is not None else churn_cap,
-                         wide_ids)
+                         wide_ids, _stage)
+    if _stage in STAGES[:3]:
+        return churn
 
     # merge, cancel and compact in one kernel; it has no churn window, so
     # the JAX package's choice between its kernel and a global merge
@@ -301,6 +326,8 @@ def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
     tree_key, tree_meta = _tree_merge_cols(spec, tracked)
     (out_key, out_meta), new_count, merge_ovf = merge_cancel_compact(
         tree_key, tree_meta, churn.key, churn.meta, churn.count, cap)
+    if _stage == "merge":
+        return out_key[::4096].sum(), out_meta[::4096].sum()
     o_ids, o_aux = _unpack_meta(spec, out_meta, cap, new_count)
 
     contained = churn.signature[3]

@@ -18,7 +18,13 @@ queries, and the generic traversals (test_generic against test_box at
 world 1 under NCCL and as four ranks sharing the card over a gloo group
 (spawned by ``parallel.run_ranks``): step, build + scan, gather / shard,
 the 90% + 10% merge, batched queries and a 1% update against the
-oracle, the single-chip path and a fresh sharded build.
+oracle, the single-chip path and a fresh sharded build.  Then the tools
+and the demo: the ball-pit demo (``examples.ball_pit``) at 2,500 balls
+in its three modes, 300 frames each, every 30th frame against the CPU
+path and its circle hits against brute force; the CLI's golden trio
+(``tools gen_boxes`` + ``gen_validation_data``) at 10k and 1M against
+the C++ oracle; the step and update profilers at 1M with their stage
+tables; and the profiling utilities.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -32,7 +38,9 @@ Without CUDA the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import re
 import statistics
@@ -48,8 +56,11 @@ import torch
 import torch.distributed as dist
 
 from broadphase_tpu_torch import (Index32_2D, Index64_2D, Index64_3D,
-                                  bench_caps, geom, layer, parallel, query,
-                                  singleq, traverse)
+                                  bench_caps, geom, layer, parallel,
+                                  profiling, query, singleq, traverse)
+from broadphase_tpu_torch.examples import ball_pit
+from broadphase_tpu_torch.tools import __main__ as cli
+from broadphase_tpu_torch.tools import profile_step, profile_update
 from broadphase_tpu_torch import scene as br_scene
 from broadphase_tpu_torch import oracle as native
 from broadphase_tpu_torch import update as upd
@@ -161,54 +172,33 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def device_ms_by_layer(run, reps: int = 5):
     """Device time per call of run() by layer (torch.profiler), in ms, and
-    the device operations (kernels, copies, fills) per call; a window that
-    shows no device events is profiled again, up to three times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                run()
-            torch.cuda.synchronize()
-        by_layer, ops = {}, 0
-        for evt in prof.key_averages():
-            if evt.device_type != DeviceType.CUDA:
-                continue
-            name = next((lab for key, lab in LAYER_OF_KERNEL
-                         if key in evt.key), "torch glue")
-            by_layer[name] = (by_layer.get(name, 0.0)
-                              + evt.self_device_time_total / reps / 1e3)
-            ops += evt.count
-        if ops:
-            break
-    return by_layer, ops / reps
+    the device operations (kernels, copies, fills) per call; fails if no
+    profiler window shows a device event (profiling.device_events)."""
+    events = profiling.device_events(run, reps)
+    check(events is not None, "the profiler shows no device events")
+    by_layer = {}
+    for key, (ms, _) in events.items():
+        name = next((lab for k, lab in LAYER_OF_KERNEL if k in key),
+                    "torch glue")
+        by_layer[name] = by_layer.get(name, 0.0) + ms
+    return by_layer, sum(count for _, count in events.values())
 
 
 def kernel_device_ms(fn, names=None, reps: int = 10) -> float:
     """Device time per call of fn() in ms (torch.profiler, summed over reps
     calls after one warm-up): the device work whose name holds one of
-    ``names``, or all of it when names is None; a window that shows none
-    is profiled again, up to three times.  Unlike cuda_ms it leaves out
-    the host's enqueue of the call's allocations and launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``names``, or all of it when names is None; fails if no profiler
+    window shows such work (profiling.device_events).  Unlike cuda_ms it
+    leaves out the host's enqueue of the call's allocations and
+    launches."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # the profiler now and then returns no device events
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                 if evt.device_type == DeviceType.CUDA
-                 and (names is None or any(k in evt.key for k in names)))
-        if us > 0:
-            break
-    return us / reps / 1e3
+    events = profiling.device_events(
+        fn, reps, keep=None if names is None
+        else lambda key: any(k in key for k in names))
+    check(events is not None, "the profiler shows no device time under "
+          f"{names}")
+    return sum(ms for ms, _ in events.values())
 
 
 def ptxas_summary(names) -> list:
@@ -998,27 +988,17 @@ def host_ms(fn, reps: int) -> list:
 
 
 def motion(scene, frac, dev):
-    """The bench's moving scene (bench.py::bench_update_sweep): A is the
-    scene, B moves ``frac`` of the objects by uniform(-5, 5) per axis and
-    every object by 1e-4 (seed 3).  Bounds on the card."""
-    _, _, bmin, bmax, _ = scene
-    rng = np.random.default_rng(3)
-    moving = rng.random(len(bmin)) < frac
-    jump = (rng.uniform(-5.0, 5.0, size=bmin.shape).astype(np.float32)
-            * moving[:, None])
-    drift = np.float32(1e-4)
+    """The bench's moving scene (``tools.profile_update.moving_scene``) of
+    the bench scene's size, its two bound sets A and B on the card."""
+    *_, bmin, bmax, _, bmin2, bmax2 = profile_update.moving_scene(
+        len(scene[4]), frac)
     return ((torch.as_tensor(bmin, device=dev),
              torch.as_tensor(bmax, device=dev)),
-            (torch.as_tensor(bmin + jump + drift, device=dev),
-             torch.as_tensor(bmax + jump + drift, device=dev)))
+            (torch.as_tensor(bmin2, device=dev),
+             torch.as_tensor(bmax2, device=dev)))
 
 
-def states_equal(got, want) -> bool:
-    """Keys, ids, aux (whole capacity), count, invalid_count, overflow."""
-    return (all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
-            and int(got.count) == int(want.count)
-            and int(got.invalid_count) == int(want.invalid_count)
-            and bool(got.overflow) == bool(want.overflow))
+states_equal = profile_update.states_equal
 
 
 def tree_equals_oracle(state, scene_np):
@@ -1537,72 +1517,47 @@ def query_phase(scene_big, dev, fresh):
     return launches, summary
 
 
-def ray_circle(ids, mask, pos, radius, origin, dirn):
-    """The ball pit's exact ray-circle narrow phase
-    (examples/ball_pit.py:66-74), its sums written out."""
-    i = torch.where(mask, ids, 0)
-    c = pos[i] - origin
-    t = c[:, 0] * dirn[0] + c[:, 1] * dirn[1]
-    d2 = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] - t * t
-    r = radius[i]
-    r2 = r * r
-    root = torch.sqrt(torch.clamp(r2 - d2, min=0.0))
-    hit = (d2 <= r2) & (t + root >= 0)
-    return torch.where(hit, t - root, torch.inf)
-
-
 def ball_pit_phase(dev):
-    """The ball pit's frame (examples/ball_pit.py): Index32_2D, min_depth
-    4, 2,500 balls; build -> pick_ray (ray-circle) -> scan, equal to the
-    CPU path at four ray angles; the frame timed on the card."""
+    """The ball pit's broadphase (``examples.ball_pit.contacts``:
+    Index32_2D, min_depth 4, 2,500 balls; build -> pick_ray (ray-circle)
+    -> scan), its tree, pairs and pick equal to the CPU path at four ray
+    angles and its pair buffer not overflowed; timed on the card."""
     n = 2500
-    rng = np.random.default_rng(0)
-    radius = rng.uniform(0.004, 0.01, n).astype(np.float32)
-    pos = rng.uniform(0.05, 0.95, (n, 2)).astype(np.float32)
-    smin, smax = np.zeros(2, np.float32), np.ones(2, np.float32)
-    bmin, bmax = pos - radius[:, None], pos + radius[:, None]
-    ids = np.arange(n, dtype=np.uint32)
-    pair_cap = -(-32 * n // 1024) * 1024
-    origin = np.array([0.5, 1.0], np.float32)
+    sims = {d.type: ball_pit.make_sim(n, device=d)
+            for d in (dev, torch.device("cpu"))}
+    start = ball_pit.initial_state(sims["cpu"], 0)
 
-    def frame(dv, ray_dir):
-        t = {k: torch.as_tensor(v, device=dv) for k, v in dict(
-            bmin=bmin, bmax=bmax, ids=ids.astype(np.int64), pos=pos,
-            radius=radius, origin=origin,
-            dirn=(ray_dir / np.linalg.norm(ray_dir)).astype(
-                np.float32)).items()}
-        st = layer.build(Index32_2D, smin, smax, t["bmin"], t["bmax"],
-                         t["ids"], min_depth=4)
-        st, hit = query.pick_ray(Index32_2D, st, smin, smax, origin,
-                                 ray_dir, 2.0, ray_circle,
-                                 (t["pos"], t["radius"], t["origin"],
-                                  t["dirn"]))
-        st, res = layer.scan(Index32_2D, st, pair_cap)
-        return st, hit, res
+    def contacts(dv, ray_dir):
+        sim = sims[torch.device(dv).type]
+        pos, radius, ray = (torch.as_tensor(x, device=dv) for x in (
+            start.pos, start.radius, ray_dir))
+        return ball_pit.contacts(pos, radius, None, ray, sim)
 
     reset_launches()
     found = 0
     for k in (0, 30, 60, 90):
         a = np.float32(-1.9) + np.float32(1.4) * np.float32(k / 120.0)
         ray_dir = np.array([np.sin(a) * 0.4, np.cos(a)], np.float32)
-        got, want = frame(dev, ray_dir), frame("cpu", ray_dir)
-        check(torch.equal(got[0].keys.cpu(), want[0].keys)
-              and torch.equal(got[0].ids.cpu(), want[0].ids)
-              and same_pick(got[1], want[1])
-              and not bool(got[2].overflow) and np.array_equal(
-                  layer.scan_result_to_numpy(got[2]),
-                  layer.scan_result_to_numpy(want[2])),
+        got, want = contacts(dev, ray_dir), contacts("cpu", ray_dir)
+        check(torch.equal(got.tree.keys.cpu(), want.tree.keys)
+              and torch.equal(got.tree.ids.cpu(), want.tree.ids)
+              and all(torch.equal(g.cpu(), w) for g, w in zip(got[:3],
+                                                             want[:3]))
+              and same_pick(got.pick, want.pick)
+              and not bool(got.overflow) and not bool(want.overflow),
               f"ball pit frame {k}: differs from the CPU path")
-        found += bool(got[1].found)
+        found += bool(got.pick.found)
         if k == 0:
             launches = read_launches()
-    f_ms = p50(host_ms(lambda: frame(dev, ray_dir), 20))
-    profile_line("ball pit frame", lambda: frame(dev, ray_dir), f_ms)
+    pairs = int(got.valid.sum())
+    f_ms = p50(host_ms(lambda: contacts(dev, ray_dir), 20))
+    profile_line("ball pit frame", lambda: contacts(dev, ray_dir), f_ms)
     print(f"ball pit (Index32_2D, min_depth 4, 2,500 balls): build -> "
-          f"pick_ray -> scan equal to the CPU path at 4 ray angles ({found} "
-          f"picks found, {int(got[2].count)} pairs in the last); frame p50 "
-          f"{f_ms:.3f} ms (20, inputs uploaded each frame); launches of one "
-          f"frame {launches}")
+          f"pick_ray -> scan (examples.ball_pit.contacts) equal to the CPU "
+          f"path at 4 ray angles ({found} picks found, {pairs} pairs in the "
+          f"last, no overflow); p50 {f_ms:.3f} ms (20, positions, radii and "
+          f"ray uploaded "
+          f"each call); launches of one call {launches}")
     return launches, {"ball_pit_frame_p50": f_ms}
 
 
@@ -2224,6 +2179,327 @@ def sharded_phase(scene_big, dev, state, want, tree_cap):
     return routes, summary
 
 
+# ---------------------------------------------------------------------------
+# The tools and the demo: the ball pit in three modes, the CLI's golden
+# trio, the step and update profilers and the profiling utilities
+# ---------------------------------------------------------------------------
+
+DEMO_TOL = 1e-6     # positions, radii, pick distance: scatter-add order and
+                    # the last bit of sin / cos / exp may differ by device
+
+
+class LaunchTally:
+    """Sums the kernels' launches over the calls it wraps, so that the
+    comparisons between them do not count."""
+
+    def __init__(self):
+        self.total = {name: 0 for name in KERNELS}
+
+    def __call__(self, fn, *args):
+        before = read_launches()
+        out = fn(*args)
+        for name, n in read_launches().items():
+            self.total[name] += n - before[name]
+        return out
+
+
+def hit_set(i, j, hit) -> set:
+    """The unordered index pairs of the hit lanes."""
+    i, j = i[hit].cpu().numpy(), j[hit].cpu().numpy()
+    return set(zip(np.minimum(i, j).tolist(), np.maximum(i, j).tolist()))
+
+
+def check_demo_frame(label, got, want):
+    """A frame on the card against the same frame on the CPU: the scanned
+    tree, pairs, hit and live counts and the pick exactly, and no overflow
+    of the pair buffer; positions, radii and the pick's distance within
+    DEMO_TOL."""
+    check(not bool(got.overflow) and not bool(want.overflow),
+          f"{label}: the pair buffer overflowed")
+    check(want.tree is None if got.tree is None else
+          torch.equal(got.tree.keys.cpu(), want.tree.keys)
+          and torch.equal(got.tree.ids.cpu(), want.tree.ids),
+          f"{label}: trees differ")
+    gi, gj, gv = (x.cpu() for x in got.pairs)
+    wi, wj, wv = want.pairs
+    check(torch.equal(gv, wv) and torch.equal(gi[gv], wi[wv])
+          and torch.equal(gj[gv], wj[wv]), f"{label}: pairs differ")
+    check(int(got.ncol) == int(want.ncol)
+          and int(got.nalive) == int(want.nalive),
+          f"{label}: counts {int(got.ncol)}, {int(got.nalive)} != "
+          f"{int(want.ncol)}, {int(want.nalive)}")
+    check(bool(got.pick.found) == bool(want.pick.found)
+          and int(got.pick.obj_id) == int(want.pick.obj_id)
+          and (not bool(want.pick.found)
+               or abs(float(got.pick.distance) - float(want.pick.distance))
+               <= DEMO_TOL), f"{label}: pick differs")
+    check(torch.equal(got.state.expires.cpu(), want.state.expires),
+          f"{label}: lifetimes differ")
+    for name in ("pos", "prev", "radius"):
+        g, w = getattr(got.state, name).cpu(), getattr(want.state, name)
+        err = float((g - w).abs().max())
+        check(err <= DEMO_TOL, f"{label}: {name} off by {err}")
+
+
+def demo_mode(dev, mode, n, frames, tally):
+    """One mode of the demo at n balls: ``frames`` frames on the card
+    (each one timed, counted and ended by a synchronize); every 30th also
+    on the CPU from the same state and draws, and, outside brute-force
+    mode, its circle hits against brute force on the card."""
+    brute, life = mode == "brute_force", mode == "lifecycle"
+    sim = ball_pit.make_sim(n, brute, life, dev)
+    sim_cpu = ball_pit.make_sim(n, brute, life, "cpu")
+    sim_bf = None if brute else ball_pit.make_sim(n, True, life, dev)
+    state = ball_pit.initial_state(sim, 0)
+    gen = torch.Generator(device=dev).manual_seed(0) if life else None
+
+    def draws():
+        return ball_pit.lifecycle_draws(sim, gen) if life else None
+
+    ball_pit.frame(state, sim, draws())                    # warm-up
+    torch.cuda.synchronize()
+    walls, ncol, checked, hits, walls_out = [], [], 0, 0, 0
+    for f in range(frames):
+        d = draws()
+        t0 = time.perf_counter()
+        out = tally(ball_pit.frame, state, sim, d)      # synchronizes
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ncol.append(out.ncol)
+        if f % 30 == 0:
+            cpu_state = ball_pit.State(*(x.cpu() for x in state))
+            want = ball_pit.frame(cpu_state, sim_cpu,
+                                  None if d is None else d.cpu())
+            check_demo_frame(f"ball pit {mode} frame {f}", out, want)
+            checked += 1
+            if sim_bf is not None:
+                _, r, _, alive, moved = ball_pit.integrate(state, sim, d)
+                ray = ball_pit.ray_direction(state.t, sim)
+                # a ball pressed into a wall leaves the system box, and the
+                # build drops it that frame, as in the JAX demo: brute
+                # force is held to the balls inside the box
+                inside = geom.bounds_contains(sim.smin, sim.smax,
+                                              moved - r[:, None],
+                                              moved + r[:, None])
+                sets = []
+                for s in (sim, sim_bf):
+                    con = ball_pit.contacts(moved, r, alive, ray, s)
+                    check(not bool(con.overflow),
+                          f"ball pit {mode} frame {f}: overflow")
+                    i, j = con.i, con.j
+                    hit, _ = ball_pit.narrow_phase(moved, r, i, j,
+                                                   con.valid, s)
+                    if s is sim_bf:
+                        walls_out += len(hit_set(i, j, hit & ~(
+                            inside[i] & inside[j])))
+                        hit = hit & inside[i] & inside[j]
+                    sets.append(hit_set(i, j, hit))
+                check(sets[0] == sets[1],
+                      f"ball pit {mode} frame {f}: {len(sets[0])} broadphase"
+                      f" hits != {len(sets[1])} brute-force hits of the "
+                      "balls inside the box")
+                hits += len(sets[0])
+        state = out.state
+    d = draws()
+    _, syncs = count_syncs(lambda: ball_pit.frame(state, sim, d))
+    layers, ops = device_ms_by_layer(lambda: ball_pit.frame(state, sim, d))
+    p50_, p90_ = np.percentile(walls, [50, 90])
+    busy = sum(layers.values())
+    total = int(torch.stack(ncol).sum())
+    nalive = int(out.nalive)
+    print(f"ball pit demo {mode} ({n} balls, {frames} frames): p50 "
+          f"{p50_:.3f} ms/frame, p90 {p90_:.3f} (each frame synchronized); "
+          f"device busy {busy:.3f} ms/frame (idle share "
+          f"{1 - busy / p50_:.3f}), {ops:.0f} device operations, {syncs} "
+          f"host synchronizations per frame; {total} collisions in all, "
+          f"{nalive} balls alive at the end; {checked} frames equal the "
+          f"CPU path (pairs, counts, pick; positions within {DEMO_TOL})"
+          + (f", their {hits} circle hits equal brute force's among the "
+             f"balls inside the box ({walls_out} more hits involve a ball "
+             "pressed into a wall, which the build drops)" if sim_bf
+             is not None else "") + "; device by layer " + ", ".join(
+              f"{k} {v:.3f}" for k, v in
+              sorted(layers.items(), key=lambda kv: -kv[1])))
+    return {f"{mode}_p50": p50_, f"{mode}_p90": p90_,
+            f"{mode}_busy": busy}
+
+
+def demo_phase(dev, n=2500, frames=300):
+    """The ball-pit demo (``examples.ball_pit``) in its three modes, n
+    balls and ``frames`` frames each, and its command line for 60 frames.
+    Returns (launches per mode, the numbers)."""
+    routes, summary = {}, {}
+    for mode in ("default", "lifecycle", "brute_force"):
+        tally = LaunchTally()
+        summary.update(demo_mode(dev, mode, n, frames, tally))
+        routes[f"ball_pit_{mode}"] = tally.total
+    check(all(routes["ball_pit_default"][k] > 0 for k in
+              ("emit_build", "run_ends", "prep_runs", "expand_pairs_prepped",
+               "stream_compact")),
+          f"ball pit demo: a kernel of the frame was not launched: "
+          f"{routes['ball_pit_default']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ball_pit.main(["--frames", "60", "--balls", str(n), "--device",
+                       str(dev)])
+    print(f"ball pit command line (60 frames, default mode): "
+          f"{buf.getvalue().splitlines()[-1]}")
+    return routes, summary
+
+
+def trio_equals_native(out_dir, scene_path):
+    """The golden trio in out_dir against the C++ oracle on the scene:
+    the unsorted tree cell for cell, the sorted tree, the pairs."""
+    sc = br_scene.load(scene_path)
+    keys, oids, _ = native.extend(sc.system_min, sc.system_max,
+                                  sc.bounds_min, sc.bounds_max, sc.ids)
+    got = [br_scene.load(Path(out_dir) / f"{name}.br_scene") for name in (
+        "0_layer_unsorted", "1_layer_sorted", "2_layer_collisions")]
+    check(np.array_equal(got[0].layer.keys, keys)
+          and np.array_equal(got[0].layer.ids, oids),
+          f"{scene_path}: the unsorted tree differs from native.extend")
+    keys, oids = native.sort_tree(keys, oids)
+    check(np.array_equal(got[1].layer.keys, keys)
+          and np.array_equal(got[1].layer.ids, oids) and got[1].layer.sorted,
+          f"{scene_path}: the sorted tree differs from native.sort_tree")
+    pairs = native.scan_seq(keys, oids,
+                            pair_slack=max(4, 24_000_000 // len(oids)))
+    check(np.array_equal(got[2].collisions, pairs),
+          f"{scene_path}: {len(got[2].collisions)} pairs differ from "
+          f"native.scan_seq's {len(pairs)}")
+    return len(oids), len(pairs)
+
+
+def cli_phase(dev, counts=(("10k", 10_000), ("1M", 1_000_000))):
+    """The CLI in-process: gen_boxes (the reference's fixture
+    boxes-seed_0-d_1_1000-s_1_10-n_010000, and the same generator at 1M)
+    and gen_validation_data on the card, each timed; the golden trio held
+    against the C++ oracle.  Returns (the launches of both pipelines, the
+    times)."""
+    tally, times, lines = LaunchTally(), {}, []
+    with tempfile.TemporaryDirectory() as d:
+        for label, count in counts:
+            path = str(Path(d) / f"s{label}.br_scene")
+            out = str(Path(d) / f"val{label}")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["gen_boxes", "--count", str(count), "--density",
+                          "0.001", "--size", "1", "10", "--seed", "0",
+                          "--out", path])
+            t1 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                tally(cli.main, ["gen_validation_data", "--in", path,
+                                 "--out-dir", out, "--device", str(dev)])
+            t2 = time.perf_counter()
+            cells_, pairs = trio_equals_native(out, path)
+            times[f"gen_boxes_{label}_s"] = t1 - t0
+            times[f"gen_validation_data_{label}_s"] = t2 - t1
+            lines.append(f"{label}: gen_boxes {t1 - t0:.3f} s, "
+                         f"gen_validation_data {t2 - t1:.3f} s ({cells_} "
+                         f"cells, {pairs} pairs)")
+    check(all(tally.total[k] > 0 for k in (
+        "emit_build", "run_ends", "prep_runs", "expand_pairs_prepped",
+        "stream_compact")), f"CLI: a kernel was not launched: "
+          f"{tally.total}")
+    print("CLI (gen_boxes seed 0, density 1/1000, sizes 1-10; "
+          "gen_validation_data on the card): the golden trio equals "
+          "native.extend / sort_tree / scan_seq cell for cell and pair "
+          "for pair; " + "; ".join(lines) + f"; launches {tally.total}")
+    return tally.total, times
+
+
+def ms_text(x) -> str:
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def profiler_phase(dev, step_p50, update_p50s, n=1_000_000):
+    """The step profiler at 1M and the update profiler at 1M, 1% and 3%
+    (each checks that its full prefix equals the production path); the
+    stage tables.  Returns (the launches of one full prefix of each, the
+    full prefixes' times)."""
+    routes, summary = {}, {}
+
+    def measured(label, rows):
+        check(all(r.device_ms is not None and r.device_ms > 0
+                  and r.device_ops > 0 for r in rows),
+              f"{label}: the profiler shows no device time for "
+              + ", ".join(r.name for r in rows if not r.device_ms))
+
+    rows = profile_step.profile(n, dev)
+    measured(f"profile_step {n}", rows)
+    full = rows[-1]
+    print(f"profile_step {n} (the full prefix's pairs equal layer.scan's): "
+          f"full prefix host {full.host_ms:.3f} ms (best of 3 x 8, "
+          f"pipelined), device {ms_text(full.device_ms)}; phase 5's p50 "
+          f"{step_p50:.3f} ms (one synchronize a step)\n"
+          + profile_step.stage_table(rows))
+    summary["step_full_host"], summary["step_full_device"] = \
+        full.host_ms, full.device_ms
+    scene_t = to_device(bench_caps.bench_scene(3, n), dev)
+    prefixes = profile_step.make_prefixes(SPEC, scene_t,
+                                          *profile_step.caps(n))
+    reset_launches()
+    prefixes[-1]()
+    routes["profile_step"] = read_launches()
+    for frac in (0.01, 0.03):
+        rows, build = profile_update.profile(n, frac, dev)
+        measured(f"profile_update {n} churn {frac:.0%}", rows + [build])
+        full = rows[-1]
+        print(f"profile_update {n} churn {frac:.0%} (the full prefix equals "
+              f"update and a fresh build): full host {full.host_ms:.3f} ms, "
+              f"device {ms_text(full.device_ms)}; fresh build host "
+              f"{build.host_ms:.3f} ms, device {ms_text(build.device_ms)}; "
+              f"phase 7's update p50 {update_p50s[frac]:.3f} ms\n"
+              + profile_step.stage_table(rows))
+        summary[f"update_{frac:.2f}_full_host"] = full.host_ms
+        summary[f"update_{frac:.2f}_full_device"] = full.device_ms
+    smin, smax, bmin, bmax, ids, bmin2, bmax2 = (
+        torch.as_tensor(x, device=dev)
+        for x in profile_update.moving_scene(n, 0.03))
+    churn_cap, obj_cap = bench_caps.update_caps(n, 0.03)
+    tracked = upd.build_tracked(SPEC, smin, smax, bmin, bmax,
+                                ids.to(torch.int64),
+                                out_capacity=bench_caps.tree_capacity(n))
+    reset_launches()
+    upd.update(SPEC, tracked, smin, smax, bmin2, bmax2, churn_cap,
+               obj_cap=obj_cap, _stage="full")
+    routes["profile_update"] = read_launches()
+    return routes, summary
+
+
+def profiling_phase(dev, scene_t, caps):
+    """The profiling utilities on the 1M step: timed, trace (a Chrome
+    trace in a temporary directory), device_memory_stats, peak_memory."""
+    def step_once():
+        return step(scene_t, *caps, True)
+
+    stats = profiling.timed(step_once, iters=20, warmup=3, device=dev)
+    check(set(stats) == {"p50_ms", "p90_ms", "min_ms", "mean_ms", "iters"}
+          and 0 < stats["min_ms"] <= stats["p50_ms"] <= stats["p90_ms"],
+          f"timed: {stats}")
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            step_once()
+        size = (Path(d) / "trace.json").stat().st_size
+        text = (Path(d) / "trace.json").read_text()
+    check(size > 0 and "build_kernel" in text,
+          f"trace: {size} bytes, no kernel in it")
+    mem = profiling.device_memory_stats(dev)
+    check(mem is not None and 0 < mem["bytes_in_use"]
+          <= mem["peak_bytes_in_use"] <= mem["bytes_limit"],
+          f"device_memory_stats: {mem}")
+    peak = profiling.peak_memory(step_once, device=dev)
+    check(peak > 0, f"peak_memory: {peak}")
+    print(f"profiling 1M step: timed p50 {stats['p50_ms']:.3f} ms, p90 "
+          f"{stats['p90_ms']:.3f}, min {stats['min_ms']:.3f} (20); trace "
+          f"{size / 1e6:.1f} MB of Chrome trace; device memory in use "
+          f"{mem['bytes_in_use'] / 2 ** 30:.2f} GiB, peak "
+          f"{mem['peak_bytes_in_use'] / 2 ** 30:.2f} GiB of "
+          f"{mem['bytes_limit'] / 2 ** 30:.1f}; peak_memory of one step "
+          f"{peak / 2 ** 30:.3f} GiB above the live tensors")
+    return {"timed_p50": stats["p50_ms"], "peak_gib": peak / 2 ** 30}
+
+
 def main() -> int:
     # 1. device
     t_start = time.perf_counter()
@@ -2352,6 +2628,7 @@ def main() -> int:
           f"canonical pairs equal the oracle; launches {step_launches}; "
           f"scene sha1 {scene_digest(scene_big)} (numpy {np.__version__})")
 
+    step_p50 = {}
     for canonical in (True, False):
         for _ in range(3):
             step(scene_t, tree_cap, pair_cap, emit_cap, canonical)
@@ -2365,6 +2642,7 @@ def main() -> int:
               f"{want.shape[0]}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         p50, p90 = np.percentile(walls, [50, 90])
+        step_p50[canonical] = p50
         print(f"step 1M canonical={canonical}: p50 {p50:.3f} ms, p90 "
               f"{p90:.3f} ms (100 steps, host clock to synchronize), peak "
               f"memory {peak:.2f} GiB")
@@ -2510,6 +2788,19 @@ def main() -> int:
     sharded_routes, surface["sharded"] = timed_phase(
         "sharded", sharded_phase, scene_big, dev, state, want, tree_cap)
     routes.update(sharded_routes)
+    # 21-24. the tools and the demo: the ball pit in three modes, the CLI,
+    # the step and update profilers, the profiling utilities
+    demo_routes, surface["ball_pit_demo"] = timed_phase(
+        "ball_pit_demo", demo_phase, dev)
+    routes.update(demo_routes)
+    routes["cli"], surface["cli"] = timed_phase("cli", cli_phase, dev)
+    prof_routes, surface["profilers"] = timed_phase(
+        "profilers", profiler_phase, dev, step_p50[True],
+        {f: results[f]["update_p50"] for f in (0.01, 0.03)})
+    routes.update(prof_routes)
+    surface["profiling"] = timed_phase(
+        "profiling", profiling_phase, dev, scene_t,
+        (tree_cap, pair_cap, emit_cap))
     print("surface summary: " + json.dumps(
         {k: {m: round(v, 3) for m, v in r.items()}
          for k, r in surface.items()}) + "; seconds per phase " + json.dumps(

@@ -1,13 +1,14 @@
 """The port stands without JAX: ``broadphase_tpu_torch`` and ``chip_smoke``
 import, and a small step, update, extend + merge, BR_SCENE round trip and
-box query (both engines, batched, and the generic walk) run, and a
+box query (both engines, batched, and the generic walk) run, the CLI's
+``gen_boxes`` and ``gen_validation_data`` and a ball-pit frame run, and a
 sharded step over two gloo ranks started by ``parallel.run_ranks`` (with
 the tests' rank bodies, ``torch_rank_bodies.py``), in a process (and
 ranks) where importing ``jax``, ``jaxlib`` or ``broadphase_tpu`` raises;
 no file of the port or of the rank bodies loads anything of
-``broadphase_tpu/`` by path; its copies of
-the bench capacities, the bench scene and the C++ oracle bindings give
-what the originals give.  ``chip_smoke.py`` fails without a CUDA card, and
+``broadphase_tpu/`` by path; its copies of the bench capacities, the
+bench scene, the scene generator and the C++ oracle bindings give what
+the originals give.  ``chip_smoke.py`` fails without a CUDA card, and
 when it stands alone without the repository.
 """
 
@@ -24,8 +25,9 @@ import pytest
 
 import bench
 from broadphase_tpu import bench_caps as jcaps
+from broadphase_tpu.utils import gen as jgen
 from broadphase_tpu.utils import native
-from broadphase_tpu_torch import bench_caps, oracle
+from broadphase_tpu_torch import bench_caps, gen, oracle
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -46,6 +48,7 @@ sys.path[:0] = sys.argv[1:3]
 
 def main():
     _single_chip()
+    _tools()
     _sharded()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "broadphase_tpu"))
@@ -70,6 +73,34 @@ def _sharded():
     for rank in ranks:
         assert not rank[0]["result"].overflow
         assert np.array_equal(rank[0]["pairs"], want)
+
+
+def _tools():
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from broadphase_tpu_torch import gen, scene as br_scene
+    from broadphase_tpu_torch.examples import ball_pit
+    from broadphase_tpu_torch.tools import __main__ as cli
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "s.br_scene")
+        cli.main(["gen_boxes", "--count", "300", "--density", "0.001",
+                  "--out", path])
+        cli.main(["gen_validation_data", "--in", path, "--out-dir", d,
+                  "--device", "cpu"])
+        sc = br_scene.load(os.path.join(d, "2_layer_collisions.br_scene"))
+        assert sc.collisions.shape[0] > 0
+        assert np.array_equal(sc.bounds_min,
+                              gen.gen_boxes(300, 0.001).bounds_min)
+    sim = ball_pit.make_sim(200, lifecycle=True, device="cpu")
+    state = ball_pit.initial_state(sim)
+    out = ball_pit.frame(state, sim, ball_pit.lifecycle_draws(
+        sim, torch.Generator().manual_seed(0)))
+    assert int(out.nalive) == ball_pit.SPAWNS_PER_FRAME
+    assert not bool(out.overflow)
+    assert int(out.tree.count) >= ball_pit.SPAWNS_PER_FRAME
 
 
 def _single_chip():
@@ -191,6 +222,15 @@ def test_copies_match_the_originals():
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(oracle.scan_seq(*got),
                                   native.scan_seq(*want))
+    for kw in ({"count": 5000, "density": 1e-3, "seed": 9},
+               {"density": 1e-3, "system_bounds": (np.zeros(3, np.float32),
+                                                   np.full(3, 40.0,
+                                                           np.float32))}):
+        got, want = gen.gen_boxes(**kw), jgen.gen_boxes(**kw)
+        for field in ("system_min", "system_max", "bounds_min",
+                      "bounds_max", "ids"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(want, field))
 
 
 # a file:line citation of the JAX package (which no program can open)
