@@ -14,8 +14,9 @@ PyTorch counterparts of ``broadphase_tpu/utils/profiling.py``:
   eager execution does not have;
 * :func:`device_events` and :func:`device_time`: a call's device time
   and device operations from the profiler's CUDA events, by name or in
-  all, and :func:`pipelined_ms`, the host time of calls enqueued back to
-  back (the stage profilers' columns).
+  all; :func:`device_readings`, their median over a fixed number of
+  windows; and :func:`pipelined_ms`, the host time of calls enqueued
+  back to back (the stage profilers' columns).
 """
 
 from __future__ import annotations
@@ -109,47 +110,93 @@ def peak_memory(fn: Callable, *args, device="cuda") -> int:
     return torch.cuda.max_memory_allocated(device) - before
 
 
-def device_events(fn: Callable, reps: int = 5, tries: int = 6,
+# The profiler's windows lose device events at their ends (on an H100
+# with torch 2.11: the first few launches of a window, and now and then
+# the last).  Each window is padded at both ends with spin kernels, which
+# are left out of its events.
+_PAD_KERNEL = "spin_kernel"
+_PAD_LAUNCHES = 8
+
+
+def _pad() -> None:
+    for _ in range(_PAD_LAUNCHES):
+        torch.cuda._sleep(1000)
+
+
+def window_events(fn: Callable, reps: int = 5,
                   keep: Optional[Callable[[str], bool]] = None
-                  ) -> Optional[Dict[str, Tuple[float, float]]]:
+                  ) -> Dict[str, Tuple[float, float]]:
     """{event name: (ms, count) per call} of the CUDA events (kernels,
-    copies, fills) of ``reps`` calls of ``fn()`` in one ``torch.profiler``
-    window, those whose name ``keep`` accepts (all when None).  The
-    profiler now and then returns a window with no device event; such a
-    window is profiled again, up to ``tries`` times in all; None if none
-    shows one."""
+    copies, fills) of ``reps`` calls of ``fn()`` in one padded
+    ``torch.profiler`` window, those whose name ``keep`` accepts (all when
+    None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = {}
-        for evt in prof.key_averages():
-            if evt.device_type != DeviceType.CUDA or (
-                    keep is not None and not keep(evt.key)):
-                continue
-            ms, count = events.get(evt.key, (0.0, 0.0))
-            events[evt.key] = (ms + evt.self_device_time_total / reps / 1e3,
-                               count + evt.count / reps)
-        if sum(ms for ms, _ in events.values()) > 0:
-            return events
-    return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad()
+        for _ in range(reps):
+            fn()
+        _pad()
+        torch.cuda.synchronize()
+    events = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or _PAD_KERNEL in evt.key \
+                or (keep is not None and not keep(evt.key)):
+            continue
+        ms, count = events.get(evt.key, (0.0, 0.0))
+        events[evt.key] = (ms + evt.self_device_time_total / reps / 1e3,
+                           count + evt.count / reps)
+    return events
 
 
-def device_time(fn: Callable, reps: int = 5
-                ) -> Optional[Tuple[float, float]]:
-    """(ms, operations) per call of ``fn()`` on the card, summed over
-    :func:`device_events`; None where the profiler showed no device
-    event."""
-    events = device_events(fn, reps)
-    if events is None:
-        return None
+def window_totals(events: Dict[str, Tuple[float, float]]
+                  ) -> Tuple[float, float]:
+    """(ms, operations) per call, summed over a window's events."""
     return (sum(ms for ms, _ in events.values()),
             sum(count for _, count in events.values()))
+
+
+def device_events(fn: Callable, reps: int = 5, tries: int = 6,
+                  keep: Optional[Callable[[str], bool]] = None,
+                  min_ops: float = 0.0
+                  ) -> Tuple[Optional[Dict[str, Tuple[float, float]]], int]:
+    """({event name: (ms, count) per call}, windows thrown away): the
+    events of one :func:`window_events` window.  The profiler now and then
+    returns a window that lost device events.  A window with no device
+    time, or with fewer operations per call than ``min_ops`` (the
+    caller's lower bound: what a shorter prefix of the same work showed),
+    is thrown away and profiled again, up to ``tries`` times in all; the
+    events are None if none passes."""
+    for dropped in range(tries):
+        events = window_events(fn, reps, keep)
+        ms, ops = window_totals(events)
+        if ms > 0 and ops >= min_ops:
+            return events, dropped
+    return None, tries
+
+
+def device_readings(fn: Callable, reps: int = 10, windows: int = 7,
+                    keep: Optional[Callable[[str], bool]] = None
+                    ) -> Tuple[float, float, list]:
+    """(median ms, median operations, [(ms, operations) of each window])
+    per call of ``fn()`` over a fixed number of :func:`window_events`
+    windows, none thrown away.  A window that lost events or part of
+    their time reads low; the median stands unless most windows did."""
+    per_window = [window_totals(window_events(fn, reps, keep))
+                  for _ in range(windows)]
+    return (float(np.median([ms for ms, _ in per_window])),
+            float(np.median([ops for _, ops in per_window])), per_window)
+
+
+def device_time(fn: Callable, reps: int = 5, min_ops: float = 0.0
+                ) -> Optional[Tuple[float, float]]:
+    """(ms, operations) per call of ``fn()`` on the card, summed over
+    :func:`device_events` (``min_ops`` as it says); None where no profiler
+    window passed."""
+    events, _ = device_events(fn, reps, min_ops=min_ops)
+    return None if events is None else window_totals(events)
 
 
 def pipelined_ms(fn: Callable, device, batches: int = 3, batch: int = 8

@@ -50,14 +50,27 @@ class StageTime(NamedTuple):
     device_ops: Optional[float]   # kernels, copies and fills per call
 
 
-def stage_time(name: str, fn: Callable, dev: torch.device) -> StageTime:
+def stage_time(name: str, fn: Callable, dev: torch.device,
+               min_ops: Optional[float] = None) -> StageTime:
     """Host ms (:func:`profiling.pipelined_ms`) and, on a CUDA device,
     device ms and operations (:func:`profiling.device_time`) of one
-    prefix; the device columns stay None where the profiler showed no
-    device event."""
+    prefix, whose profiler window must show at least ``min_ops``
+    operations (the shorter prefix's count: a prefix runs all of it); the
+    device columns stay None where no window passed."""
     host = profiling.pipelined_ms(fn, dev)
-    dt = profiling.device_time(fn) if dev.type == "cuda" else None
+    dt = (profiling.device_time(fn, min_ops=min_ops or 0.0)
+          if dev.type == "cuda" else None)
     return StageTime(name, host, *(dt or (None, None)))
+
+
+def stage_times(names, prefixes, dev: torch.device) -> List[StageTime]:
+    """:func:`stage_time` of each prefix in order, each held to at least
+    the operations of the one before it."""
+    rows = []
+    for name, fn in zip(names, prefixes):
+        rows.append(stage_time(name, fn, dev,
+                               rows[-1].device_ops if rows else None))
+    return rows
 
 
 def caps(n: int):
@@ -120,7 +133,7 @@ def profile(n: int = 1_000_000, device="cuda", seed: int = 0
                                layer.scan_result_to_numpy(want))):
         raise RuntimeError("the full prefix differs from layer.scan")
 
-    return [stage_time(name, fn, dev) for name, fn in zip(STAGES, prefixes)]
+    return stage_times(STAGES, prefixes, dev)
 
 
 def stage_table(rows: List[StageTime]) -> str:

@@ -33,7 +33,7 @@ import torch
 from .. import bench_caps, layer
 from ..index import Index64_3D
 from ..update import STAGES, build_tracked, update
-from .profile_step import StageTime, stage_table, stage_time
+from .profile_step import StageTime, stage_table, stage_time, stage_times
 
 SPEC = Index64_3D
 
@@ -91,7 +91,7 @@ def profile(n: int = 1_000_000, frac: float = 0.03, device="cuda"
         raise RuntimeError("the full prefix differs from update or from a "
                            "fresh build")
 
-    return ([stage_time(s, prefix(s), dev) for s in STAGES],
+    return (stage_times(STAGES, [prefix(s) for s in STAGES], dev),
             stage_time("build", fresh, dev))
 
 

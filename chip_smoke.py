@@ -24,7 +24,11 @@ in its three modes, 300 frames each, every 30th frame against the CPU
 path and its circle hits against brute force; the CLI's golden trio
 (``tools gen_boxes`` + ``gen_validation_data``) at 10k and 1M against
 the C++ oracle; the step and update profilers at 1M with their stage
-tables; and the profiling utilities.
+tables; and the profiling utilities.  Last, four configurations of the
+port's benchmark (``broadphase_tpu_torch.bench``) that no phase above runs
+at full size, untimed, each against its reference: the 1M step with ids
+offset by 2^25, ``Index64_2D`` at 1M, the 10k ball pit and the 500k +
+500k merge with a parity-filtered scan.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -56,7 +60,7 @@ import torch
 import torch.distributed as dist
 
 from broadphase_tpu_torch import (Index32_2D, Index64_2D, Index64_3D,
-                                  bench_caps, geom, layer, parallel,
+                                  bench, bench_caps, geom, layer, parallel,
                                   profiling, query, singleq, traverse)
 from broadphase_tpu_torch.examples import ball_pit
 from broadphase_tpu_torch.tools import __main__ as cli
@@ -91,28 +95,28 @@ K7_NAMES = ("expand_partitioned_kernel<false>",
             "expand_partitioned_kernelILb0E")
 KERNELS = {
     # name: (wrapper, source, TPU kernel it replaces, path whose launches
-    # the kernels line reports, names of the device work its entry point
+    # the kernels line reports, names of the kernels its entry point
     # launches, as the profiler shows them)
     "emit_build": (emit_build, "broadphase_tpu_torch/csrc/build.cu",
                    "broadphase_tpu/ops/pallas_build.py:290", "step",
-                   ("build_kernel", "Memset")),
+                   ("build_kernel",)),
     "run_ends": (scan_pass1, "broadphase_tpu_torch/csrc/runends.cu",
                  "broadphase_tpu/ops/pallas_runends.py:103", "step",
-                 ("pass1_kernel", "Memset")),
+                 ("pass1_kernel",)),
     "prep_runs": (prep_runs, "broadphase_tpu_torch/csrc/prep.cu",
                   "broadphase_tpu/ops/pallas_prep.py:173", "step",
-                  ("prep_onepass", "Memset")),
+                  ("prep_onepass",)),
     "expand_pairs_prepped": (expand_pairs_prepped,
                              "broadphase_tpu_torch/csrc/expand2.cu",
                              "broadphase_tpu/ops/pallas_expand2.py:307",
                              "step", K4_NAMES),
     "stream_compact": (stream_compact, "broadphase_tpu_torch/csrc/compact.cu",
                        "broadphase_tpu/ops/pallas_compact.py:200", "step",
-                       ("compact_onepass", "Memset")),
+                       ("compact_onepass",)),
     "merge_cancel_compact": (merge_cancel_compact,
                              "broadphase_tpu_torch/csrc/merge.cu",
                              "broadphase_tpu/ops/pallas_merge.py:263",
-                             "frame", ("merge_path", "Memset")),
+                             "frame", ("merge_path",)),
     # kernel 7: the v2 scan calls the entries' wrapper; expand_pairs (the
     # JAX function's contract) runs kernel 5 and then that wrapper
     "expand_pairs": (expand_pairs_entries,
@@ -129,6 +133,15 @@ KERNELS = {
 # operations are counted as 2 per element read or written.
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 132 * 64 * 1.98e9
+# A kernel whose device time reads below its bound / this has been
+# mismeasured (phase 8 fails)
+BOUND_SLACK = 1.05
+# profiler windows whose median is a kernel's device time in phase 8;
+# a window that lost events or time reads low, and is counted
+DEVICE_WINDOWS = 7
+# int32 lanes of the buffer written before each launch of a cold-L2
+# timing: 256 MB, five times the H100's 50 MB L2
+FLUSH_LANES = 64 << 20
 
 
 # device kernels by layer, matched on the kernel's name; the rest of the
@@ -174,7 +187,7 @@ def device_ms_by_layer(run, reps: int = 5):
     """Device time per call of run() by layer (torch.profiler), in ms, and
     the device operations (kernels, copies, fills) per call; fails if no
     profiler window shows a device event (profiling.device_events)."""
-    events = profiling.device_events(run, reps)
+    events, _ = profiling.device_events(run, reps)
     check(events is not None, "the profiler shows no device events")
     by_layer = {}
     for key, (ms, _) in events.items():
@@ -184,21 +197,51 @@ def device_ms_by_layer(run, reps: int = 5):
     return by_layer, sum(count for _, count in events.values())
 
 
-def kernel_device_ms(fn, names=None, reps: int = 10) -> float:
-    """Device time per call of fn() in ms (torch.profiler, summed over reps
-    calls after one warm-up): the device work whose name holds one of
-    ``names``, or all of it when names is None; fails if no profiler
-    window shows such work (profiling.device_events).  Unlike cuda_ms it
-    leaves out the host's enqueue of the call's allocations and
-    launches."""
+def kernel_device_ms(fn, names=None, reps: int = 10, floor_ms: float = 0.0):
+    """(device time per call of fn() in ms, windows that read low):
+    torch.profiler, after one warm-up call, of the kernels whose name
+    holds one of ``names``, or all device work when names is None; the
+    median over DEVICE_WINDOWS windows of reps calls each, none thrown
+    away (profiling.device_readings).  A window reads low if it shows
+    fewer kernel launches than the wrappers counted in the warm-up call,
+    or less than ``floor_ms``; fails unless the median window shows
+    every launch.  Unlike cuda_ms it leaves out the host's enqueue of the
+    call's allocations and launches, and the wrappers' fills and
+    status-word clears."""
+    reset_launches()
     fn()
-    torch.cuda.synchronize()
-    events = profiling.device_events(
-        fn, reps, keep=None if names is None
+    launches = sum(read_launches().values()) if names is not None else 0
+    ms, ops, per_window = profiling.device_readings(
+        fn, reps, DEVICE_WINDOWS, None if names is None
         else lambda key: any(k in key for k in names))
-    check(events is not None, "the profiler shows no device time under "
-          f"{names}")
-    return sum(ms for ms, _ in events.values())
+    check(ms > 0 and ops >= launches,
+          f"the median of {DEVICE_WINDOWS} profiler windows shows {ops} "
+          f"launches a call under {names}, {ms:.4f} ms; the wrappers "
+          f"counted {launches}")
+    low = sum(w_ms < floor_ms or w_ops < launches
+              for w_ms, w_ops in per_window)
+    return ms, low
+
+
+def flushed_ms(fn, flush, n: int = 100) -> float:
+    """Device ms of one fn() with a cold L2: CUDA events around n calls,
+    each after a write of every lane of ``flush`` (larger than the L2),
+    less the same n writes alone.  The card runs the writes and calls
+    back to back, so the host's enqueue is hidden."""
+    def per_call(body):
+        body()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            body()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    alone = per_call(lambda: flush.fill_(1))
+    return per_call(lambda: (flush.fill_(1), fn())) - alone
 
 
 def ptxas_summary(names) -> list:
@@ -363,7 +406,7 @@ def compare_all(state, inputs, emit_cap):
         max_abs_err(no_bm, prepped[:3] + prepped[4:]))
     extra = {"prep_runs (no meta, v2 scan)": (
         prep_runs, v2_prep, prep_runs_plain,
-        nbytes(e, state.ids, *prepped_v2[:3]), ("prep_onepass", "Memset"))}
+        nbytes(e, state.ids, *prepped_v2[:3]), ("prep_onepass",))}
     sv2, ab2, bid2, _, m2, total2, _ = prepped_v2
     vargs = (state.ids, sv2, ab2, bid2, m2, total2, emit_cap)
     got = expand_pairs_entries(*vargs)
@@ -380,7 +423,7 @@ def compare_all(state, inputs, emit_cap):
     extra["expand_pairs (JAX contract: k5 + k7)"] = (
         expand_pairs, jargs, expand_pairs_plain,
         nbytes(state.ids, starts, run) + nbytes(*jgot),
-        K7_NAMES + ("compact_onepass", "Memset"))
+        K7_NAMES + ("compact_onepass",))
     return errs, timed, extra
 
 
@@ -2500,6 +2543,45 @@ def profiling_phase(dev, scene_t, caps):
     return {"timed_p50": stats["p50_ms"], "peak_gib": peak / 2 ** 30}
 
 
+def bench_phase(dev, want):
+    """Configurations 4-7 of ``broadphase_tpu_torch.bench`` once each at
+    full size with the bench's own checks, untimed: the 1M step with ids
+    offset by 2^25 (the oracle's pairs, offset), ``Index64_2D`` at 1M and
+    the 10k ball pit (the CPU path's tree and pairs) and the 500k + 500k
+    merge with the parity-filtered scan (the oracle's pairs, filtered).
+    ``want``: the oracle's pairs of the 1M bench scene.  Returns each
+    path's launches."""
+    n = 1_000_000
+    runs = {"step_wide": lambda: bench.bench_full_step_wide(
+                n, dev, iters=0, want=want),
+            "step_2d": lambda: bench.bench_index64_2d(n, dev, iters=0),
+            "ball_pit_10k": lambda: bench.bench_ball_pit_2d(10_000, dev,
+                                                            iters=0),
+            "merge_filtered": lambda: bench.bench_merge_scan_filtered(
+                n, dev, iters=0, want=want)}
+    step_kernels = [k for k, v in KERNELS.items() if v[3] == "step"]
+    routes, pairs = {}, {}
+    for route, run in runs.items():
+        reset_launches()
+        out = run()
+        routes[route] = read_launches()
+        check(out["verified"] and not out["overflow"],
+              f"bench {route}: {out['pairs']} pairs differ from the "
+              f"reference, or overflow {out['overflow']}")
+        needed = step_kernels + (["merge_cancel_compact"]
+                                 if route == "merge_filtered" else [])
+        check(all(routes[route][k] > 0 for k in needed),
+              f"bench {route}: a kernel of the path was not launched: "
+              f"{routes[route]}")
+        pairs[route] = out["pairs"]
+    print(f"bench configurations at full size: {pairs} pairs; the wide-id "
+          f"1M step's equal the oracle's offset by 2^25, Index64_2D 1M's "
+          f"and the 10k ball pit's (tree and pairs) the CPU path's, the "
+          f"merge + parity-filtered scan's the oracle's so filtered; no "
+          f"overflow; launches {routes}")
+    return routes
+
+
 def main() -> int:
     # 1. device
     t_start = time.perf_counter()
@@ -2521,7 +2603,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s -> {_cuda.library_path().name}")
     print("ptxas: " + " | ".join(ptxas_summary(sorted(
         {re.split(r"<|ILb", k)[0] for *_, names in KERNELS.values()
-         for k in names} - {"Memset"}))))
+         for k in names}))))
 
     n_big = 1_000_000
     scene_big = bench_caps.bench_scene(3, n_big)
@@ -2715,41 +2797,63 @@ def main() -> int:
                 "scan_v2": v2_launches}
     # ms: CUDA events around one wrapper call (allocations and the host's
     # enqueue included); device_ms: the profiler's device time of the
-    # kernel's own launches, per call over 10 calls
+    # kernel's own launches, per call over 10 calls, the median of
+    # DEVICE_WINDOWS windows (those that show fewer launches than counted
+    # or less than the bound / BOUND_SLACK are reported as low);
+    # flushed_ms: CUDA events around 100 calls, each after an L2 flush,
+    # less the flushes (the wrapper's fills included).  Neither reading
+    # may fall below the bound / BOUND_SLACK.
+    flush = torch.empty(FLUSH_LANES, dtype=torch.int32, device=dev)
+
+    def time_kernel(name, wrapper, args, names, moved):
+        bound_ms, bound_by = bound(moved)
+        device_ms, low = kernel_device_ms(
+            lambda: wrapper(*args), names, floor_ms=bound_ms / BOUND_SLACK)
+        cold_ms = flushed_ms(lambda: wrapper(*args), flush)
+        check(min(device_ms, cold_ms) >= bound_ms / BOUND_SLACK,
+              f"kernel {name}: device {device_ms:.4f} ms or flushed "
+              f"{cold_ms:.4f} ms reads below its bound {bound_ms:.4f} ms / "
+              f"{BOUND_SLACK}")
+        return device_ms, cold_ms, bound_ms, bound_by, low
+
     rows = []
     for name, (wrapper, src, rep, path, names) in KERNELS.items():
         args, plain, moved, library = timed[name]
         ms = cuda_ms(lambda: wrapper(*args))
-        device_ms = kernel_device_ms(lambda: wrapper(*args), names)
-        check(device_ms > 0, f"kernel {name}: the profiler shows no device "
-              f"time under {names}")
+        device_ms, cold_ms, bound_ms, bound_by, low = time_kernel(
+            name, wrapper, args, names, moved)
         plain_ms = cuda_ms(lambda: plain(*args))
         library_ms = library_device_ms = None
         if library is not None:
             library_ms = cuda_ms(library)
-            library_device_ms = kernel_device_ms(library)
-        bound_ms, bound_by = bound(moved)
+            library_device_ms = kernel_device_ms(library)[0]
         lib = ("none" if library is None else f"{library_ms:.3f} ms (device "
                f"{library_device_ms:.3f} ms)")
         print(f"kernel {name}: exact at the 1M shapes; device {device_ms:.3f}"
-              f" ms, call {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.3f} ms ({moved / 1e6:.1f} MB), library {lib}; "
-              f"{launches[path][name]} launches per {path}")
+              f" ms ({low} of {DEVICE_WINDOWS} profiler windows low), flushed "
+              f"{cold_ms:.3f} ms, call {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({moved / 1e6:.1f} "
+              f"MB), library {lib}; {launches[path][name]} launches per "
+              f"{path}")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[path][name],
                      "max_abs_err": errs[name], "ms": ms,
-                     "device_ms": device_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms,
+                     "device_ms": device_ms,
+                     "device_windows_low": low, "flushed_ms": cold_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
                      "library_device_ms": library_device_ms})
     # the v2 scan's kernel 3 and the JAX-shaped kernel 7, timed alike
     for name, (wrapper, args, plain, moved, names) in extra.items():
-        device_ms = kernel_device_ms(lambda: wrapper(*args), names)
-        bound_ms, _ = bound(moved)
+        device_ms, cold_ms, bound_ms, _, low = time_kernel(
+            name, wrapper, args, names, moved)
         print(f"kernel {name}: exact at the 1M shapes; device {device_ms:.3f}"
-              f" ms, call {cuda_ms(lambda: wrapper(*args)):.3f} ms, plain "
+              f" ms ({low} of {DEVICE_WINDOWS} profiler windows low), flushed "
+              f"{cold_ms:.3f} ms, call "
+              f"{cuda_ms(lambda: wrapper(*args)):.3f} ms, plain "
               f"{cuda_ms(lambda: plain(*args)):.3f} ms, bound {bound_ms:.3f} "
               f"ms ({moved / 1e6:.1f} MB)")
+    del flush
 
     # 9-16. the rest of the layer surface and the linear queries, each
     # path's launches counted from 0
@@ -2801,6 +2905,8 @@ def main() -> int:
     surface["profiling"] = timed_phase(
         "profiling", profiling_phase, dev, scene_t,
         (tree_cap, pair_cap, emit_cap))
+    # 25. the bench's configurations new to the card
+    routes.update(timed_phase("bench_configs", bench_phase, dev, want))
     print("surface summary: " + json.dumps(
         {k: {m: round(v, 3) for m, v in r.items()}
          for k, r in surface.items()}) + "; seconds per phase " + json.dumps(

@@ -1,7 +1,9 @@
 """The port stands without JAX: ``broadphase_tpu_torch`` and ``chip_smoke``
 import, and a small step, update, extend + merge, BR_SCENE round trip and
 box query (both engines, batched, and the generic walk) run, the CLI's
-``gen_boxes`` and ``gen_validation_data`` and a ball-pit frame run, and a
+``gen_boxes`` and ``gen_validation_data`` and a ball-pit frame run, every
+configuration of the benchmark (``broadphase_tpu_torch.bench``) runs on
+the CPU at a small size and its record passes, and a
 sharded step over two gloo ranks started by ``parallel.run_ranks`` (with
 the tests' rank bodies, ``torch_rank_bodies.py``), in a process (and
 ranks) where importing ``jax``, ``jaxlib`` or ``broadphase_tpu`` raises;
@@ -49,6 +51,7 @@ sys.path[:0] = sys.argv[1:3]
 def main():
     _single_chip()
     _tools()
+    _bench()
     _sharded()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "broadphase_tpu"))
@@ -73,6 +76,34 @@ def _sharded():
     for rank in ranks:
         assert not rank[0]["result"].overflow
         assert np.array_equal(rank[0]["pairs"], want)
+
+
+def _bench():
+    from broadphase_tpu_torch import bench
+
+    # every configuration once, untimed; one of them also timed
+    r = {"verify_30k": bench.verify_30k("cpu", n=2000),
+         "full_step_10k": bench.bench_full_step(10_000, "cpu", iters=0),
+         "full_step_1M": bench.bench_full_step(10_000, "cpu", iters=1,
+                                               batch=1),
+         "unsorted_1M": bench.bench_full_step_unsorted(10_000, "cpu",
+                                                       iters=0),
+         "wide_1M": bench.bench_full_step_wide(2000, "cpu", iters=0),
+         "index64_2d_1M": bench.bench_index64_2d(2000, "cpu", iters=0),
+         "ball_pit_2d_10k": bench.bench_ball_pit_2d(500, "cpu", iters=0),
+         "merge_scan_filtered_1M": bench.bench_merge_scan_filtered(
+             100_000, "cpu", iters=0),
+         "update_sweep_1M": bench.bench_update_sweep(2000, "cpu", iters=0),
+         "queries_100k": bench.bench_queries(2000, "cpu", iters=0),
+         "single_query_1M": bench.bench_single_query_tree(2000, "cpu",
+                                                          iters=0),
+         "queries_batched_100k": bench.bench_queries_batched(
+             2000, "cpu", Q=4, iters=0),
+         "ball_pit_lifecycle": bench.bench_ball_pit_lifecycle(100, "cpu",
+                                                              frames=10)}
+    rec = bench.record(r, "cpu")
+    assert rec["verified"] and not rec["overflow"], rec
+    assert rec["value"] > 0 and rec["full_step_1M_wide_p50_ms"] is None
 
 
 def _tools():

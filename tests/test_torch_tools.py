@@ -242,3 +242,109 @@ def test_scan_visualizer_writes_frames(tmp_path):
     scan_visualizer.main(["--boxes", "12", "--steps", "0", "4", "--out-dir",
                           str(tmp_path), "--device", "cpu"])
     assert (tmp_path / "scan_step_0004.png").stat().st_size > 1000
+
+
+class _FakeWindow:
+    """A ``torch.profiler.profile`` whose windows show given CUDA events:
+    each window takes the next list of (name, total us, count) from
+    ``windows`` and records that it was opened."""
+
+    windows: list = []
+    opened = 0
+
+    def __init__(self, activities):
+        del activities
+
+    def __enter__(self):
+        type(self).opened += 1
+        self.events = type(self).windows.pop(0)
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        from torch.autograd import DeviceType
+        return [type("Evt", (), {"device_type": DeviceType.CUDA, "key": k,
+                                 "self_device_time_total": us,
+                                 "count": c})()
+                for k, us, c in self.events]
+
+
+_PAD = [("at::cuda::spin_kernel(long)", 9.0, 8)]
+_WHOLE = [("kernel", 500.0, 5), ("fill", 50.0, 5)] + _PAD
+_LOST = [("kernel", 400.0, 4), ("fill", 50.0, 5)] + _PAD    # lost a launch
+_SHORT = [("kernel", 200.0, 5), ("fill", 50.0, 5)] + _PAD   # lost time
+
+
+def _fake_profiler(monkeypatch, windows):
+    _FakeWindow.windows, _FakeWindow.opened = list(windows), 0
+    monkeypatch.setattr(torch.profiler, "profile", _FakeWindow)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(profiling, "_pad", lambda: None)
+
+
+@pytest.mark.parametrize("case", ["lost_then_whole", "short_then_whole",
+                                  "never_whole"])
+def test_device_events_retries_a_window_below_the_bound(monkeypatch, case):
+    """A window with no device event or with fewer operations a call than
+    ``min_ops`` is thrown away, counted and profiled again; a window
+    that shows every operation is kept whatever its time (no window is
+    picked for its time); the padding kernels never count."""
+    windows = {"lost_then_whole": [[], _LOST, _WHOLE],
+               "short_then_whole": [_SHORT, _WHOLE],
+               "never_whole": [[], _LOST, [], _LOST, _LOST, _LOST]}[case]
+    _fake_profiler(monkeypatch, windows)
+    calls = []
+    got, dropped = profiling.device_events(lambda: calls.append(1), reps=5,
+                                           min_ops=2.0)
+    if case == "never_whole":
+        assert _FakeWindow.opened == 6 and got is None and dropped == 6
+    elif case == "short_then_whole":
+        assert _FakeWindow.opened == 1 and dropped == 0
+        assert len(calls) == 5
+        assert got == {"kernel": (0.04, 1.0), "fill": (0.01, 1.0)}
+    else:
+        assert _FakeWindow.opened == len(windows)
+        assert dropped == len(windows) - 1
+        assert len(calls) == 5 * len(windows)
+        assert got == {"kernel": (0.1, 1.0), "fill": (0.01, 1.0)}
+
+
+@pytest.mark.parametrize("n_low", [0, 3, 4])
+def test_device_readings_take_the_median_of_fixed_windows(monkeypatch,
+                                                          n_low):
+    """device_readings profiles exactly the windows asked for, throws
+    none away and returns their median: up to 3 windows of 7 that lost
+    events or time leave it at the whole windows' reading, 4 pull it
+    down (so a kernel's reading below its bound shows, not a pick)."""
+    low = ([], _LOST, _SHORT, _LOST)[:n_low]
+    _fake_profiler(monkeypatch, [*low, *[_WHOLE] * (7 - n_low)])
+    calls = []
+    ms, ops, per_window = profiling.device_readings(
+        lambda: calls.append(1), reps=5, windows=7,
+        keep=lambda key: key == "kernel")
+    assert _FakeWindow.opened == 7 and len(calls) == 35
+    assert len(per_window) == 7
+    assert per_window[n_low:] == [(0.1, 1.0)] * (7 - n_low)
+    if n_low < 4:
+        assert (ms, ops) == (0.1, 1.0)
+    else:
+        assert ms == 0.08
+
+
+def test_stage_times_hold_each_prefix_to_the_one_before(monkeypatch):
+    seen = []
+
+    def fake_device_time(fn, reps=5, min_ops=0.0):
+        seen.append(min_ops)
+        return fn()
+
+    monkeypatch.setattr(profiling, "device_time", fake_device_time)
+    monkeypatch.setattr(profiling, "pipelined_ms", lambda fn, dev: 1.0)
+    prefixes = [lambda: (1.0, 10.0), lambda: (2.0, 14.0),
+                lambda: (3.0, 20.0)]
+    rows = profile_step.stage_times(("a", "b", "c"), prefixes,
+                                    torch.device("cuda"))
+    assert seen == [0.0, 10.0, 14.0]
+    assert [r.device_ops for r in rows] == [10.0, 14.0, 20.0]
