@@ -1,0 +1,11 @@
+"""``pick.device_ms``: device time a traced frame spends in operations
+launched inside the ``query.pick_ray`` span, in ms."""
+
+SPAN = "query.pick_ray"
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.span_ops.get(SPAN):
+        return None
+    return t.span_s[SPAN] / t.frames * 1e3
