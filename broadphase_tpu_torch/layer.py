@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import geom
+from . import geom, profiling
 from .index import (IndexSpec, PAD_KEY, depth_of, descendant_max,
                     keys_from_numpy, keys_to_numpy, origin_of)
 from .ops.build import emit_build
@@ -219,26 +219,30 @@ def _build(spec: IndexSpec, system_min, system_max, bounds_min, bounds_max,
     """:func:`build`, and the emitted aux bits with the tree's order of
     them (``aux[perm]`` is the tree's aux before :func:`mask_aux`, which
     ``update`` carries from frame to frame)."""
-    dev = resolve_device(device, bounds_min, bounds_max, ids)
-    contained, lmin, lmax, ids = _objects(dev, system_min, system_max,
-                                          bounds_min, bounds_max, ids)
-    n = ids.shape[0]
-    out_cap = out_capacity if out_capacity is not None \
-        else n * slots_per_axis ** spec.dim
-    keys, fids, faux, count, cell_ovf = emit_build(
-        spec, lmin, lmax, contained, ids, int(min_depth), out_cap,
-        slots_per_axis)
-    skeys, sids, saux, perm = _sort_tree(spec, keys, fids, faux)
-    state = LayerState(
-        keys=skeys,
-        ids=sids,
-        aux=saux,
-        count=count.clamp(max=out_cap),
-        sorted=_host(True, torch.bool),
-        min_depth=_host(int(min_depth), torch.int64),
-        invalid_count=(~contained).sum(dtype=torch.int64),
-        overflow=cell_ovf | (count > out_cap),
-    )
+    with profiling.span("layer.build"):
+        dev = resolve_device(device, bounds_min, bounds_max, ids)
+        with profiling.span("build.quantize"):
+            contained, lmin, lmax, ids = _objects(
+                dev, system_min, system_max, bounds_min, bounds_max, ids)
+        n = ids.shape[0]
+        out_cap = out_capacity if out_capacity is not None \
+            else n * slots_per_axis ** spec.dim
+        with profiling.span("build.emit"):
+            keys, fids, faux, count, cell_ovf = emit_build(
+                spec, lmin, lmax, contained, ids, int(min_depth), out_cap,
+                slots_per_axis)
+        with profiling.span("build.sort"):
+            skeys, sids, saux, perm = _sort_tree(spec, keys, fids, faux)
+        state = LayerState(
+            keys=skeys,
+            ids=sids,
+            aux=saux,
+            count=count.clamp(max=out_cap),
+            sorted=_host(True, torch.bool),
+            min_depth=_host(int(min_depth), torch.int64),
+            invalid_count=(~contained).sum(dtype=torch.int64),
+            overflow=cell_ovf | (count > out_cap),
+        )
     return state, faux, perm
 
 
@@ -456,10 +460,11 @@ def _finish_pairs(a, b, valid, pair_capacity: int, emit_capacity: int,
     buffer, or for ``canonical=False``) and the canonical sort + dedup;
     ``_stage`` as :func:`scan_pairs` says."""
     if not canonical or emit_capacity > pair_capacity:
-        (ca, cb), ccnt = stream_compact(valid, (a, b))
-        a, b = ca[:pair_capacity], cb[:pair_capacity]
-        pair_overflow = pair_overflow | (ccnt > pair_capacity)
-        valid = a != PAD_ID
+        with profiling.span("scan.compact"):
+            (ca, cb), ccnt = stream_compact(valid, (a, b))
+            a, b = ca[:pair_capacity], cb[:pair_capacity]
+            pair_overflow = pair_overflow | (ccnt > pair_capacity)
+            valid = a != PAD_ID
         if not canonical:
             return ScanResult(a, b, ccnt.clamp(max=pair_capacity),
                               pair_overflow | extra_overflow)
@@ -467,7 +472,8 @@ def _finish_pairs(a, b, valid, pair_capacity: int, emit_capacity: int,
         return a[::4096].sum(), b[::4096].sum()
     if _stage == "sort_pairs":
         return canonical_pairs(a, b, valid, _stage)
-    out_a, out_b, count = canonical_pairs(a, b, valid)
+    with profiling.span("scan.canonical"):
+        out_a, out_b, count = canonical_pairs(a, b, valid)
     return ScanResult(out_a, out_b, count, pair_overflow | extra_overflow)
 
 
@@ -579,24 +585,29 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                           torch.zeros((), dtype=torch.int64, device=dev),
                           extra_overflow)
     if nested_ids:
-        keys, ids, count = _drop_nested_same_id(spec, keys, ids, count)
+        with profiling.span("scan.nested"):
+            keys, ids, count = _drop_nested_same_id(spec, keys, ids, count)
         aux = None      # partial same-id blocks: the aux bits are stale
-    e, ameta, bmeta = scan_pass1(spec, keys, aux, rules=expand == "v3")
+    with profiling.span("scan.pass1"):
+        e, ameta, bmeta = scan_pass1(spec, keys, aux, rules=expand == "v3")
     if _stage == "run_ends":
         return e[::4096].sum()
-    sv, ab, bid, bm, m, total, wrapped = prep_runs(e, ids, bmeta, count)
+    with profiling.span("scan.prep"):
+        sv, ab, bid, bm, m, total, wrapped = prep_runs(e, ids, bmeta, count)
+    profiling.count("scan.emitted", total)
     if _stage == "prep":
         return total, sv[::4096].sum()
-    if expand == "v2":
-        # broadphase_tpu/layer.py:980-998: the same runs and prefix sum,
-        # expanded with no rule
-        a, b = expand_pairs_entries(ids, sv, ab, bid, m, total, emit_cap)
-    else:
-        lane = torch.arange(cap, dtype=torch.int64, device=dev)
-        max_id = torch.where(lane < count, ids, 0).max()
-        a, b = expand_pairs_prepped(ids, ameta, sv, ab, bid, bm, m, total,
-                                    emit_cap, max_id < _RULE_ID_BOUND,
-                                    spec.dim)
+    with profiling.span("scan.expand"):
+        if expand == "v2":
+            # broadphase_tpu/layer.py:980-998: the same runs and prefix
+            # sum, expanded with no rule
+            a, b = expand_pairs_entries(ids, sv, ab, bid, m, total, emit_cap)
+        else:
+            lane = torch.arange(cap, dtype=torch.int64, device=dev)
+            max_id = torch.where(lane < count, ids, 0).max()
+            a, b = expand_pairs_prepped(ids, ameta, sv, ab, bid, bm, m,
+                                        total, emit_cap,
+                                        max_id < _RULE_ID_BOUND, spec.dim)
     if _stage == "gather":
         return a[::4096].sum(), b[::4096].sum()
     # dropped emissions and slots >= total are PAD on both sides
@@ -604,9 +615,12 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     if filter_fn is not None:
         valid = valid & torch.as_tensor(filter_fn(a, b), dtype=torch.bool,
                                         device=dev)
-    return _finish_pairs(a, b, valid, pair_capacity, emit_cap,
-                         wrapped | (total > emit_cap), extra_overflow,
-                         canonical, _stage)
+    result = _finish_pairs(a, b, valid, pair_capacity, emit_cap,
+                           wrapped | (total > emit_cap), extra_overflow,
+                           canonical, _stage)
+    if _stage == "full_stream":
+        profiling.count("scan.pairs", result.count)
+    return result
 
 
 def scan(spec: IndexSpec, state: LayerState, pair_capacity: int,
@@ -630,12 +644,14 @@ def scan_filtered(spec: IndexSpec, state: LayerState, pair_capacity: int,
     dedup (``broadphase_tpu.layer.scan_filtered``): ``filter_fn(a_ids,
     b_ids)`` is a vectorized function of two int64 tensors on the layer's
     device that returns a bool mask of their shape."""
-    state = sort(spec, state)
-    result = scan_pairs(spec, state.keys, state.ids, state.count,
-                        pair_capacity, filter_fn,
-                        extra_overflow=state.overflow, aux=state.aux,
-                        emit_capacity=emit_capacity, nested_ids=nested_ids,
-                        canonical=canonical, expand=expand)
+    with profiling.span("layer.scan"):
+        state = sort(spec, state)
+        result = scan_pairs(spec, state.keys, state.ids, state.count,
+                            pair_capacity, filter_fn,
+                            extra_overflow=state.overflow, aux=state.aux,
+                            emit_capacity=emit_capacity,
+                            nested_ids=nested_ids, canonical=canonical,
+                            expand=expand)
     return state, result
 
 

@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from .. import geom
+from .. import geom, profiling
 from ..index import IndexSpec, PAD_KEY
 from . import _cuda
 
@@ -89,8 +89,5 @@ def emit_build(spec: IndexSpec, lmin: torch.Tensor, lmax: torch.Tensor,
                  keys, out_ids, aux, n, spec.dim, spec.axis_bits,
                  spec.depth_bits, int(slots_per_axis), int(min_depth),
                  int(out_capacity))
-    emit_build.launches += 1
+    profiling.count("k1.launches", 1)
     return keys, out_ids, aux, stats[0], stats[1] != 0
-
-
-emit_build.launches = 0

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _cuda
 from .compact import stream_compact
 from .expand2 import expand_pairs_prepped_plain
@@ -87,11 +88,8 @@ def expand_pairs_entries(ids, sv, ab, bid, m, total, pair_capacity: int):
     b = torch.empty_like(a)
     _cuda.launch("bpt_expand_v2", ids, sv, ab, bid, m_t, total_t, a, b,
                  ids.shape[0], int(pair_capacity))
-    expand_pairs_entries.launches += 1
+    profiling.count("k7.launches", 1)
     return a, b
-
-
-expand_pairs_entries.launches = 0
 
 
 def expand_pairs(ids: torch.Tensor, starts: torch.Tensor, run: torch.Tensor,

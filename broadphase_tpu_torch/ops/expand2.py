@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _cuda
 from .search import expand_runs, segmented_broadcast
 
@@ -89,8 +90,5 @@ def expand_pairs_prepped(ids, ameta, sv, ab, bid, bmeta, m, total,
     b = torch.empty_like(a)
     _cuda.launch("bpt_expand", ids, ameta, sv, ab, bid, bmeta, m_t, total_t,
                  rule_t, a, b, ids.shape[0], int(pair_capacity), int(dim))
-    expand_pairs_prepped.launches += 1
+    profiling.count("k4.launches", 1)
     return a, b
-
-
-expand_pairs_prepped.launches = 0

@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from .. import profiling
 from ..index import PAD_KEY
 from . import _cuda
 from .compact import stream_compact_plain
@@ -99,9 +100,6 @@ def merge_cancel_compact(tree_key: torch.Tensor, tree_meta: torch.Tensor,
     _cuda.launch("bpt_merge", tree_key, tree_meta, churn_key, churn_meta, cc,
                  out_key, out_meta, count, scratch, cap, nc,
                  int(out_capacity))
-    merge_cancel_compact.launches += 1
+    profiling.count("k6.launches", 1)
     return ((out_key, out_meta), count,
             torch.zeros((), dtype=torch.bool, device=dev))
-
-
-merge_cancel_compact.launches = 0

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from .. import profiling
 from . import _cuda
 
 HUGE = 0x7FFF_FFFF
@@ -92,8 +93,5 @@ def prep_runs(e: torch.Tensor, ids: torch.Tensor,
                           dtype=torch.int64, device=dev)
     _cuda.launch("bpt_prep", e, ids, meta, count, sv, ab, bid, bmeta, stats,
                  scratch, cap)
-    prep_runs.launches += 1
+    profiling.count("k3.launches", 1)
     return sv, ab, bid, bmeta, stats[0], stats[1], stats[2] != 0
-
-
-prep_runs.launches = 0

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import profiling
 from ..index import (IndexSpec, _axis_interleave_mask, bit_length, depth_of,
                      tz_pack)
 from . import _cuda
@@ -121,8 +122,5 @@ def scan_pass1(spec: IndexSpec, keys: torch.Tensor,
     _cuda.launch("bpt_runends", keys, aux, e, ameta, bmeta, scratch, n,
                  spec.dim, spec.key_bits, spec.axis_bits, spec.depth_bits,
                  *masks, int(rules))
-    scan_pass1.launches += 1
+    profiling.count("k2.launches", 1)
     return e, ameta, bmeta
-
-
-scan_pass1.launches = 0

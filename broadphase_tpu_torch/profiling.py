@@ -16,7 +16,10 @@ PyTorch counterparts of ``broadphase_tpu/utils/profiling.py``:
   and device operations from the profiler's CUDA events, by name or in
   all; :func:`device_readings`, their median over a fixed number of
   windows; and :func:`pipelined_ms`, the host time of calls enqueued
-  back to back (the stage profilers' columns).
+  back to back (the stage profilers' columns);
+* :func:`tracing`, :func:`span`, :func:`count` and :func:`counters`: the
+  port's own spans at the stages of ``layer.build`` and ``layer.scan``
+  and its counters (emissions, pairs, kernel launches), off by default.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,7 +145,10 @@ def window_events(fn: Callable, reps: int = 5,
         torch.cuda.synchronize()
     events = {}
     for evt in prof.key_averages():
+        # under tracing() the port's spans show on the device's timeline
+        # too, as the range of the work launched inside them
         if evt.device_type != DeviceType.CUDA or _PAD_KERNEL in evt.key \
+                or evt.key in SPANS \
                 or (keep is not None and not keep(evt.key)):
             continue
         ms, count = events.get(evt.key, (0.0, 0.0))
@@ -215,3 +221,81 @@ def pipelined_ms(fn: Callable, device, batches: int = 3, batch: int = 8
         best = min(best, (time.perf_counter() - t0) / batch * 1e3)
         del outs
     return best
+
+
+# ---------------------------------------------------------------------------
+# The port's spans and counters
+# ---------------------------------------------------------------------------
+
+# Every span the port opens: a layer, then its stages in call order.  What
+# a layer does between its stages is the layer's self time.
+SPANS = ("layer.build", "build.quantize", "build.emit", "build.sort",
+         "layer.scan", "scan.nested", "scan.pass1", "scan.prep",
+         "scan.expand", "scan.compact", "scan.canonical")
+# Every counter: the emission slots a scan fills (``prep_runs``' total)
+# and the pairs it keeps, and each kernel's launches (k7:
+# ``expand_pairs_entries``).
+COUNTERS = ("scan.emitted", "scan.pairs") + tuple(
+    f"k{k}.launches" for k in range(1, 8))
+
+_NO_SPAN = contextlib.nullcontext()
+_tracing = False
+_kept: Dict[str, List] = {}
+
+
+class tracing:
+    """Turn the port's spans and counters on (or, with ``on=False``,
+    off): ``with tracing(): ...`` restores the previous state on exit, and
+    a bare ``tracing(on)`` call leaves the new state set, as
+    ``torch.set_grad_enabled`` does."""
+
+    def __init__(self, on: bool = True):
+        global _tracing
+        self.prev, _tracing = _tracing, bool(on)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        global _tracing
+        _tracing = self.prev
+        return False
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` span named ``name`` (one of
+    :data:`SPANS`) while tracing is on, so that it lands in a profiler's
+    trace beside the device events; one shared no-op context otherwise."""
+    if not _tracing:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a host int or a 0-dim tensor, kept by reference: no
+    synchronisation, no kernel) to counter ``name`` while tracing is on;
+    nothing otherwise."""
+    if _tracing:
+        _kept.setdefault(name, []).append(value)
+
+
+def counters() -> Dict[str, int]:
+    """{counter: sum} of the values kept since the last call, read to the
+    host in one ``torch.stack(...).tolist()`` a device, and the kept
+    values cleared."""
+    kept = dict(_kept)
+    _kept.clear()
+    out = {name: 0 for name in kept}
+    on_device: Dict[torch.device, list] = {}
+    for name, values in kept.items():
+        for v in values:
+            if isinstance(v, torch.Tensor):
+                on_device.setdefault(v.device, []).append((name, v))
+            else:
+                out[name] += int(v)
+    for items in on_device.values():
+        read = torch.stack([v.reshape(()).to(torch.int64)
+                            for _, v in items]).tolist()
+        for (name, _), v in zip(items, read):
+            out[name] += v
+    return out

@@ -1009,14 +1009,27 @@ def check_slice(native, scene, dev, tree_cap, pair_cap, emit_cap, label):
     return len(want_ids), want.shape[0]
 
 
+# each kernel's launch counter (profiling.COUNTERS; KERNELS runs from k1
+# to k7), and the launches read since the last reset_launches()
+KERNEL_COUNTER = {name: f"k{k}.launches"
+                  for k, name in enumerate(KERNELS, 1)}
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
 def reset_launches() -> None:
-    for wrapper, *_ in KERNELS.values():
-        wrapper.launches = 0
+    """Turn the port's counters on (they stay on) and count from 0."""
+    profiling.tracing(True)
+    profiling.counters()
+    LAUNCHES.update(dict.fromkeys(KERNELS, 0))
 
 
 def read_launches() -> dict:
+    """Each kernel's launches since the last reset_launches()."""
     torch.cuda.synchronize()
-    return {name: w.launches for name, (w, *_) in KERNELS.items()}
+    counted = profiling.counters()
+    for name, counter in KERNEL_COUNTER.items():
+        LAUNCHES[name] += counted.get(counter, 0)
+    return dict(LAUNCHES)
 
 
 def host_ms(fn, reps: int) -> list:

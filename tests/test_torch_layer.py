@@ -16,7 +16,7 @@ import bench
 from broadphase_tpu import index as bidx
 from broadphase_tpu import layer as jl
 from broadphase_tpu.utils import native
-from broadphase_tpu_torch import LayerBuilder, bench_caps, convert
+from broadphase_tpu_torch import LayerBuilder, bench_caps, convert, profiling
 from broadphase_tpu_torch import index as tidx
 from broadphase_tpu_torch import layer as tl
 from broadphase_tpu_torch.ops import (build, compact, expand, expand2, merge,
@@ -206,8 +206,8 @@ def test_layer_builder_and_empty_layer():
 
 
 def _meta_args(name):
-    """(wrapper, its arguments on the meta device, the wrapper whose count
-    its kernel launch adds to)."""
+    """(wrapper, its arguments on the meta device, the launch counter its
+    kernel adds to)."""
     m = "meta"
 
     def z(shape, dtype):
@@ -239,8 +239,11 @@ def _meta_args(name):
                                  (z(4, i64), z(4, i64), z(4, i64), z(4, i64),
                                   z((), i64), z((), i64), 16)),
     }[name]
-    counted = expand.expand_pairs_entries if name == "expand_pairs" else fn
-    return fn, args, counted
+    counter = {build.emit_build: "k1", runends.scan_pass1: "k2",
+               prep.prep_runs: "k3", expand2.expand_pairs_prepped: "k4",
+               compact.stream_compact: "k5", merge.merge_cancel_compact: "k6",
+               expand.expand_pairs: "k7", expand.expand_pairs_entries: "k7"}
+    return fn, args, counter[fn] + ".launches"
 
 
 @pytest.mark.parametrize("name", ["emit_build", "run_ends", "prep_runs",
@@ -250,9 +253,12 @@ def _meta_args(name):
                                   "expand_pairs_entries"])
 def test_kernel_wrappers_dispatch_on_device(name):
     """A tensor not on the CPU goes to the kernel, which refuses anything
-    but a CUDA tensor: no silent plain path, and no launch counted."""
-    fn, args, counted = _meta_args(name)
-    before = counted.launches
-    with pytest.raises(ValueError, match="CUDA"):
-        fn(*args)
-    assert counted.launches == before
+    but a CUDA tensor: no silent plain path, and, with the port's counters
+    on, no launch counted."""
+    fn, args, counter = _meta_args(name)
+    assert counter in profiling.COUNTERS
+    with profiling.tracing():
+        profiling.counters()
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+        assert profiling.counters() == {}

@@ -1,0 +1,195 @@
+"""The port's spans and counters (``broadphase_tpu_torch.profiling``):
+under ``profiling.tracing()`` ``layer.build`` and ``layer.scan`` open
+exactly their registered stage spans, each inside its layer; with tracing
+off they open none and keep no counter; the scan's counters equal what
+the scan computed; and tracing changes no output."""
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from broadphase_tpu_torch import bench_caps, layer, profiling
+from broadphase_tpu_torch import index as tidx
+from broadphase_tpu_torch.ops.prep import prep_runs
+from broadphase_tpu_torch.ops.runends import scan_pass1
+
+SPEC = tidx.Index64_3D
+N = 1500
+TREE, PAIRS, EMIT = 8 * N, 24 * N, 40 * N
+
+# (scan options, the stages it opens besides pass1, prep and expand)
+SCANS = {
+    "canonical": (dict(emit_capacity=PAIRS), ["scan.canonical"]),
+    "canonical_wide_emit": (dict(emit_capacity=EMIT),
+                            ["scan.compact", "scan.canonical"]),
+    "unsorted": (dict(emit_capacity=EMIT, canonical=False),
+                 ["scan.compact"]),
+    "nested_ids": (dict(emit_capacity=EMIT, nested_ids=True),
+                   ["scan.nested", "scan.compact", "scan.canonical"]),
+    "nested_ids_unsorted": (dict(nested_ids=True, canonical=False),
+                            ["scan.nested", "scan.compact"]),
+    "v2": (dict(emit_capacity=EMIT, expand="v2"),
+           ["scan.compact", "scan.canonical"]),
+}
+BUILD_STAGES = ["build.quantize", "build.emit", "build.sort"]
+
+
+@pytest.fixture(autouse=True)
+def _tracing_off():
+    """Each test starts and ends with tracing off and no kept counter."""
+    with profiling.tracing(False):
+        profiling.counters()
+        yield
+    profiling.counters()
+
+
+def _scene(seed=0):
+    return bench_caps.bench_scene(3, N, seed=seed)
+
+
+def _build(scene):
+    return layer.build(SPEC, *scene, out_capacity=TREE, device="cpu")
+
+
+def _scan(state, opts):
+    return layer.scan(SPEC, state, PAIRS, **opts)[1]
+
+
+def _spans(fn):
+    """[(span, its parent span or None)] of the port's spans that ``fn()``
+    opens under tracing and a CPU profiler, in the order they start."""
+    with profiling.tracing(), profile(activities=[ProfilerActivity.CPU]) \
+            as prof:
+        fn()
+    out = []
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.name in profiling.SPANS:
+            parent = e.cpu_parent
+            while parent is not None and parent.name not in profiling.SPANS:
+                parent = parent.cpu_parent
+            out.append((e.name, None if parent is None else parent.name))
+    return out
+
+
+def test_build_opens_its_stages_inside_it():
+    assert _spans(lambda: _build(_scene())) == (
+        [("layer.build", None)]
+        + [(s, "layer.build") for s in BUILD_STAGES])
+
+
+@pytest.mark.parametrize("case", SCANS)
+def test_scan_opens_its_stages_inside_it(case):
+    opts, extra = SCANS[case]
+    state = _build(_scene())
+    stages = [s for s in ("scan.nested", "scan.pass1", "scan.prep",
+                          "scan.expand", "scan.compact", "scan.canonical")
+              if s in extra or s in ("scan.pass1", "scan.prep",
+                                     "scan.expand")]
+    assert _spans(lambda: _scan(state, opts)) == (
+        [("layer.scan", None)] + [(s, "layer.scan") for s in stages])
+
+
+@pytest.mark.parametrize("case", SCANS)
+def test_every_span_opened_is_registered(monkeypatch, case):
+    opened = []
+    real = torch.profiler.record_function
+
+    def recording(name):
+        opened.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", recording)
+    scene = _scene()
+    with profiling.tracing():
+        state = _build(scene)
+        _scan(state, SCANS[case][0])
+        empty = layer.make_layer(SPEC, TREE, device="cpu")
+        grown = layer.extend(SPEC, empty, *scene)
+        layer.merge(SPEC, state, grown)
+        layer.scan_auto(SPEC, state, initial_capacity=1024)
+    assert opened and set(opened) <= set(profiling.SPANS)
+    assert set(profiling.counters()) <= set(profiling.COUNTERS)
+
+
+@pytest.mark.parametrize("case", SCANS)
+def test_tracing_off_opens_no_span_and_keeps_no_counter(monkeypatch, case):
+    def refuse(name):
+        raise AssertionError(f"span {name!r} opened with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    state = _build(_scene())
+    res = _scan(state, SCANS[case][0])
+    assert int(res.count) > 0
+    assert profiling.counters() == {}
+
+
+@pytest.mark.parametrize("case", SCANS)
+def test_scan_counters_equal_the_result_and_the_prep_total(case):
+    opts = SCANS[case][0]
+    state = _build(_scene(seed=3))
+    with profiling.tracing():
+        res = _scan(state, opts)
+    got = profiling.counters()
+    keys, ids, count = state.keys, state.ids, state.count
+    if opts.get("nested_ids"):
+        keys, ids, count = layer._drop_nested_same_id(SPEC, keys, ids, count)
+    v3 = opts.get("expand", "v3") == "v3"
+    aux = state.aux if v3 and not opts.get("nested_ids") else None
+    e, _, bmeta = scan_pass1(SPEC, keys, aux, rules=v3)
+    total = prep_runs(e, ids, bmeta, count)[5]
+    assert got == {"scan.emitted": int(total), "scan.pairs": int(res.count)}
+    assert 0 < got["scan.pairs"] <= got["scan.emitted"]
+
+
+@pytest.mark.parametrize("case", SCANS)
+def test_tracing_changes_no_output(case):
+    opts = SCANS[case][0]
+    scene = _scene(seed=5)
+    outs = []
+    for on in (False, True, False):
+        with profiling.tracing(on):
+            state = _build(scene)
+            outs.append((state, _scan(state, opts)))
+    (s0, r0), (s1, r1), (s2, r2) = outs
+    for a, b in ((s0, s1), (s0, s2)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in ((r0, r1), (r0, r2)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_counters_sum_host_and_device_values_and_clear():
+    with profiling.tracing():
+        profiling.count("k5.launches", 1)
+        profiling.count("k5.launches", 2)
+        profiling.count("scan.pairs", torch.tensor(7))
+        profiling.count("scan.pairs", torch.tensor([5], dtype=torch.int32))
+        profiling.count("scan.emitted", torch.tensor(np.int64(2 ** 40)))
+    profiling.count("scan.emitted", 1)       # tracing off: not kept
+    assert profiling.counters() == {"k5.launches": 3, "scan.pairs": 12,
+                                    "scan.emitted": 2 ** 40}
+    assert profiling.counters() == {}
+
+
+def test_tracing_restores_the_state_and_a_bare_call_sets_it():
+    assert profiling.span("layer.build") is profiling.span("layer.scan")
+    with profiling.tracing():
+        with profiling.tracing(False):
+            assert profiling.span("layer.build") is profiling._NO_SPAN
+        assert profiling.span("layer.build") is not profiling._NO_SPAN
+    assert profiling.span("layer.build") is profiling._NO_SPAN
+    profiling.tracing(True)
+    try:
+        assert profiling.span("layer.build") is not profiling._NO_SPAN
+    finally:
+        profiling.tracing(False)
+    assert profiling.span("layer.build") is profiling._NO_SPAN
+
+
+def test_registered_names_are_unique_and_stages_follow_their_layer():
+    assert len(set(profiling.SPANS)) == len(profiling.SPANS)
+    assert len(set(profiling.COUNTERS)) == len(profiling.COUNTERS)
+    for name in profiling.SPANS:
+        group, _ = name.split(".")
+        if group != "layer":
+            assert f"layer.{group}" in profiling.SPANS
