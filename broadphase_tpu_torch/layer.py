@@ -8,9 +8,10 @@ canonical pair sort and dedup), and the rest of the layer surface:
 ``nested_ids`` pre-pass, :func:`scan_auto` and the BR_SCENE bridge.  On
 CUDA tensors every stage that the JAX package runs as a Pallas kernel
 launches this package's CUDA kernel (``ops/``); on CPU tensors the same
-code runs each kernel's plain version.  The tree sort and the canonical
-pair sort are ``torch.sort`` (library sorts, as ``lax.sort`` is in the JAX
-package); the merge of two sorted layers is the merge kernel (k6).
+code runs each kernel's plain version.  The tree sort is ``torch.sort``
+(a library sort, as ``lax.sort`` is in the JAX package); the canonical
+pair sort is kernel 8, a radix sort of the pairs packed to the ids'
+width; the merge of two sorted layers is the merge kernel (k6).
 
 Data contract (see ``index.py``): keys int64 with pad ``PAD_KEY``; ids
 int64 with the reserved pad ``0xFFFF_FFFF``, which still sorts after every
@@ -37,6 +38,7 @@ from .ops.compact import stream_compact
 from .ops.expand import expand_pairs_entries
 from .ops.expand2 import expand_pairs_prepped
 from .ops.merge import merge_cancel_compact
+from .ops.pairsort import pair_sort
 from .ops.prep import prep_runs
 from .ops.runends import scan_pass1
 from .scene import SceneLayer
@@ -434,46 +436,43 @@ SCAN_STAGES = ("run_ends", "prep", "gather", "compact", "sort_pairs",
 def canonical_pairs(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor,
                     _stage: str = "full_stream"
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sort the valid (a, b) pairs, drop duplicates, compact to the front.
-
-    One int64 sort key ``((a - 2^31) << 32) | b`` orders like the unsigned
-    (a, b) tuple; invalid lanes take ``INT64_MAX``, which decodes to
-    (PAD, PAD) and sorts last.  Returns (a, b, count), PAD past count;
-    ``_stage`` "sort_pairs" returns a sum over the sorted keys instead
+    """Sort the valid (a, b) pairs, drop duplicates, compact to the front
+    (kernel 8, ``ops/pairsort.py``): the pairs packed as ``(a << w) | b``,
+    ``w`` the bit length of the largest valid id, radix-sorted and
+    deduplicated.  Returns (a, b, count), PAD past count; ``_stage``
+    "sort_pairs" stops after the sort and returns its passes instead
     (:func:`scan_pairs`)."""
-    key = torch.where(valid, (a - (1 << 31)) * (1 << 32) + b, PAD_KEY)
-    key = torch.sort(key).values
-    if _stage == "sort_pairs":
-        return key[::4096].sum()
-    a_s = (key >> 32) + (1 << 31)
-    b_s = key & 0xFFFF_FFFF
-    prev = torch.cat([key[:1] ^ 1, key[:-1]])
-    keep = (key != PAD_KEY) & (key != prev)
-    (out_a, out_b), count = stream_compact(keep, (a_s, b_s))
-    return out_a, out_b, count
+    out = pair_sort(a, b, valid, a.shape[0], _stage=_stage)
+    return out if _stage == "sort_pairs" else out[:3]
 
 
 def _finish_pairs(a, b, valid, pair_capacity: int, emit_capacity: int,
                   pair_overflow, extra_overflow, canonical: bool,
-                  _stage: str = "full_stream") -> ScanResult:
-    """Emission compaction (when the emission buffer is wider than the pair
-    buffer, or for ``canonical=False``) and the canonical sort + dedup;
-    ``_stage`` as :func:`scan_pairs` says."""
-    if not canonical or emit_capacity > pair_capacity:
+                  _stage: str = "full_stream",
+                  id_bound: Optional[torch.Tensor] = None) -> ScanResult:
+    """The canonical sort + dedup of the first ``pair_capacity`` valid
+    emissions (kernel 8 compacts a wider emission buffer itself; ``valid``
+    None: those where a != b), or for ``canonical=False`` the emission
+    compaction alone (kernel 5); ``_stage`` as :func:`scan_pairs` says."""
+    if not canonical:
         with profiling.span("scan.compact"):
             (ca, cb), ccnt = stream_compact(valid, (a, b))
             a, b = ca[:pair_capacity], cb[:pair_capacity]
             pair_overflow = pair_overflow | (ccnt > pair_capacity)
             valid = a != PAD_ID
-        if not canonical:
-            return ScanResult(a, b, ccnt.clamp(max=pair_capacity),
-                              pair_overflow | extra_overflow)
+        return ScanResult(a, b, ccnt.clamp(max=pair_capacity),
+                          pair_overflow | extra_overflow)
     if _stage == "compact":
+        if emit_capacity > pair_capacity:
+            return pair_sort(a, b, valid, pair_capacity, id_bound, _stage)
         return a[::4096].sum(), b[::4096].sum()
     if _stage == "sort_pairs":
-        return canonical_pairs(a, b, valid, _stage)
+        return pair_sort(a, b, valid, pair_capacity, id_bound, _stage)
     with profiling.span("scan.canonical"):
-        out_a, out_b, count = canonical_pairs(a, b, valid)
+        out_a, out_b, count, total = pair_sort(a, b, valid, pair_capacity,
+                                               id_bound)
+    if emit_capacity > pair_capacity:
+        pair_overflow = pair_overflow | (total > pair_capacity)
     return ScanResult(out_a, out_b, count, pair_overflow | extra_overflow)
 
 
@@ -561,11 +560,12 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     emissions survive into ``canonical=False`` output.
 
     ``_stage`` (``tools/profile_step.py``) cuts the canonical scan short
-    after a prefix of :data:`SCAN_STAGES` and returns small sums over that
-    stage's output, so that nothing of the prefix is skipped: "run_ends"
-    (k2), "prep" (k3), "gather" (the expansion), "compact" (k5 where the
-    emission buffer is wider than the pair buffer, else nothing more than
-    "gather") and "sort_pairs" (the canonical sort).
+    after a prefix of :data:`SCAN_STAGES` and returns small readings of
+    that stage's output: "run_ends" (k2), "prep" (k3), "gather" (the
+    expansion), "compact" (kernel 8's pack, which compacts the emissions,
+    where the emission buffer is wider than the pair buffer, else nothing
+    more than "gather"; its valid and packed counts) and "sort_pairs"
+    (kernel 8's pack and radix passes; the passes that did work).
     """
     if expand not in ("v2", "v3"):
         raise ValueError(f"expand must be 'v2' or 'v3', got {expand!r}")
@@ -597,6 +597,7 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     profiling.count("scan.emitted", total)
     if _stage == "prep":
         return total, sv[::4096].sum()
+    max_id = None   # the v2 scan leaves kernel 8 to find its id bound
     with profiling.span("scan.expand"):
         if expand == "v2":
             # broadphase_tpu/layer.py:980-998: the same runs and prefix
@@ -610,14 +611,17 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                                         max_id < _RULE_ID_BOUND, spec.dim)
     if _stage == "gather":
         return a[::4096].sum(), b[::4096].sum()
-    # dropped emissions and slots >= total are PAD on both sides
-    valid = a != b
+    # dropped emissions and slots >= total are PAD on both sides; kernel 8
+    # finds a != b itself
+    valid = None
+    if filter_fn is not None or not canonical:
+        valid = a != b
     if filter_fn is not None:
         valid = valid & torch.as_tensor(filter_fn(a, b), dtype=torch.bool,
                                         device=dev)
     result = _finish_pairs(a, b, valid, pair_capacity, emit_cap,
                            wrapped | (total > emit_cap), extra_overflow,
-                           canonical, _stage)
+                           canonical, _stage, max_id)
     if _stage == "full_stream":
         profiling.count("scan.pairs", result.count)
     return result

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "bpt_expand": "pppppp" + "ppp" + "pp" + "iii" + "p",
     "bpt_merge": "ppppp" + "ppp" + "p" + "iii" + "p",
     "bpt_expand_v2": "pppp" + "pp" + "pp" + "ii" + "p",
+    "bpt_pairsort": "pppp" + "pp" + "ppp" + "p" + "iii" + "p",
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -124,6 +125,8 @@ def load() -> ctypes.CDLL:
                  "bpt_prep_tile", "bpt_merge_tile"):
         getattr(lib, name).restype = ctypes.c_int64
         getattr(lib, name).argtypes = []
+    lib.bpt_pairsort_scratch.restype = ctypes.c_int64
+    lib.bpt_pairsort_scratch.argtypes = [ctypes.c_int64, ctypes.c_int64]
     _lib = lib
     return lib
 
@@ -170,6 +173,12 @@ def merge_tile() -> int:
     """Merged positions a block of the merge kernel (``merge.cu``) takes;
     its scratch is one status word a tile plus the ticket."""
     return load().bpt_merge_tile()
+
+
+def pairsort_scratch(n: int, cap: int) -> int:
+    """Words of scratch the pair-sort chain (``pairsort.cu``) needs for
+    ``n`` input lanes and ``cap`` output lanes."""
+    return load().bpt_pairsort_scratch(n, cap)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

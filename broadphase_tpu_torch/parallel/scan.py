@@ -16,10 +16,10 @@ The step per rank: local cell emission (kernel 1, ``ops/build.py``), the
 narrow-id gate reduced by MAX over the group, one routing sort by (key,
 ``(id << dim) | aux``), bucket rows cut at the bucket boundaries, ONE
 ``all_to_all_single`` of the packed (key, id, aux) rows, the local sort,
-the per-fragment scan (kernels 2 to 5, ``layer.scan_pairs``) and the
-dedup exchange: every pair goes to the rank owning the Fibonacci hash of
-its first id, so the copies of a pair that two ranks emitted meet on one
-rank and the canonical sort + dedup (kernel 5) removes them.  The counts
+the per-fragment scan (kernels 2 to 4 and 8, ``layer.scan_pairs``) and
+the dedup exchange: every pair goes to the rank owning the Fibonacci hash
+of its first id, so the copies of a pair that two ranks emitted meet on
+one rank and the canonical sort + dedup (kernel 8) removes them.  The counts
 and flags of all ranks travel in one ``all_gather``.
 
 The JAX collectives map one to one: ``all_to_all`` to
@@ -254,7 +254,7 @@ def dedup_exchange(group, n_dev: int, xcap: int, pa: torch.Tensor,
     """Global pair dedup (``broadphase_tpu.parallel.scan._dedup_exchange``):
     route each pair to the rank owning the Fibonacci hash of its first id,
     so every copy of a pair meets on one rank, then the canonical sort and
-    dedup (kernel 5).  ``pa``/``pb`` are a canonical scan's output, sorted
+    dedup (kernel 8).  ``pa``/``pb`` are a canonical scan's output, sorted
     by (a, b) with pads last, so one stable sort by owner orders them as
     JAX's sort by (owner, a, b).  Returns (out_a, out_b, count,
     overflow): this rank's class, sorted and deduplicated, in

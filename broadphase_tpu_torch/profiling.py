@@ -19,7 +19,8 @@ PyTorch counterparts of ``broadphase_tpu/utils/profiling.py``:
   back to back (the stage profilers' columns);
 * :func:`tracing`, :func:`span`, :func:`count` and :func:`counters`: the
   port's own spans at the stages of ``layer.build`` and ``layer.scan``
-  and its counters (emissions, pairs, kernel launches), off by default.
+  and its counters (emissions, pairs, sort passes, kernel launches), off
+  by default.
 """
 
 from __future__ import annotations
@@ -232,11 +233,12 @@ def pipelined_ms(fn: Callable, device, batches: int = 3, batch: int = 8
 SPANS = ("layer.build", "build.quantize", "build.emit", "build.sort",
          "layer.scan", "scan.nested", "scan.pass1", "scan.prep",
          "scan.expand", "scan.compact", "scan.canonical")
-# Every counter: the emission slots a scan fills (``prep_runs``' total)
-# and the pairs it keeps, and each kernel's launches (k7:
-# ``expand_pairs_entries``).
-COUNTERS = ("scan.emitted", "scan.pairs") + tuple(
-    f"k{k}.launches" for k in range(1, 8))
+# Every counter: the emission slots a scan fills (``prep_runs``' total),
+# the pairs it keeps and the radix passes of its canonical pair sort that
+# did work, and each kernel's launches (k7: ``expand_pairs_entries``; k8:
+# the pair sort's chain).
+COUNTERS = ("scan.emitted", "scan.pairs", "scan.sort_passes") + tuple(
+    f"k{k}.launches" for k in range(1, 9))
 
 _NO_SPAN = contextlib.nullcontext()
 _tracing = False

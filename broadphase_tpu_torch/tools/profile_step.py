@@ -14,10 +14,10 @@ Stages (each a prefix that ends at it):
   run_ends    -- pass 1 of the scan (k2): run ends and both rule bytes
   prep        -- run prefix sum and compaction of nonempty runs (k3)
   gather      -- pair expansion with the emit-once rule (k4)
-  compact     -- emission compaction to the pair buffer (k5; the step
-                 skips it where the emission buffer is no wider)
-  sort_pairs  -- the canonical pair sort (torch.sort)
-  full_stream -- + dedup mask and compaction (k5): the production step
+  compact     -- emission compaction to the pair buffer (k8's pack; the
+                 step has none where the emission buffer is no wider)
+  sort_pairs  -- the canonical pair sort (k8's pack and radix passes)
+  full_stream -- + dedup and compaction (k8's finish): the production step
 
 Each prefix is timed on the host (the best of 3 batches of 8 calls, one
 synchronize a batch) and, on a CUDA device, by its device time and

@@ -1,7 +1,9 @@
-"""On-card smoke test of broadphase_tpu_torch: builds the seven CUDA kernels,
+"""On-card smoke test of broadphase_tpu_torch: builds the eight CUDA kernels,
 holds each against its plain PyTorch version (kernel 2, pass 1 of the scan,
 also against the run ends of the adjacent-LCA depths; kernel 1 slot for
-slot, also when the tree overflows; kernel 7 on both of its entry points),
+slot, also when the tree overflows; kernel 7 on both of its entry points;
+kernel 8, the canonical pair sort, at every id width its key packs and at
+each canonical path's own input, the sharded dedup's included),
 drives the build + scan step at 30k and 1M boxes against the C++ oracle,
 the v2 scan at 1M, and the temporal-coherence update path at 1M boxes and
 four churn fractions (and a wide-ids frame) against a fresh build, aux
@@ -81,6 +83,7 @@ from broadphase_tpu_torch.ops.expand2 import (expand_pairs_prepped,
                                               expand_pairs_prepped_plain)
 from broadphase_tpu_torch.ops.merge import (merge_cancel_compact,
                                             merge_cancel_compact_plain)
+from broadphase_tpu_torch.ops.pairsort import pair_sort, pair_sort_plain
 from broadphase_tpu_torch.ops.prep import prep_runs, prep_runs_plain
 from broadphase_tpu_torch.ops.runends import (adjacent_lca_depth,
                                               alpha_meta, run_ends_plain,
@@ -93,6 +96,8 @@ K4_NAMES = ("expand_partitioned_kernel<true>",
             "expand_partitioned_kernelILb1E")
 K7_NAMES = ("expand_partitioned_kernel<false>",
             "expand_partitioned_kernelILb0E")
+K8_NAMES = ("pairsort_bound_kernel", "pairsort_pack_kernel",
+            "pairsort_pass_kernel", "pairsort_finish_kernel")
 KERNELS = {
     # name: (wrapper, source, TPU kernel it replaces, path whose launches
     # the kernels line reports, names of the kernels its entry point
@@ -110,9 +115,10 @@ KERNELS = {
                              "broadphase_tpu_torch/csrc/expand2.cu",
                              "broadphase_tpu/ops/pallas_expand2.py:307",
                              "step", K4_NAMES),
+    # the canonical scan compacts inside kernel 8; canonical=False keeps k5
     "stream_compact": (stream_compact, "broadphase_tpu_torch/csrc/compact.cu",
-                       "broadphase_tpu/ops/pallas_compact.py:200", "step",
-                       ("compact_onepass",)),
+                       "broadphase_tpu/ops/pallas_compact.py:200",
+                       "step_unsorted", ("compact_onepass",)),
     "merge_cancel_compact": (merge_cancel_compact,
                              "broadphase_tpu_torch/csrc/merge.cu",
                              "broadphase_tpu/ops/pallas_merge.py:263",
@@ -123,6 +129,10 @@ KERNELS = {
                      "broadphase_tpu_torch/csrc/expand2.cu",
                      "broadphase_tpu/ops/pallas_expand.py:203", "scan_v2",
                      K7_NAMES),
+    # kernel 8, the canonical pair sort's chain: no TPU kernel (lax.sort)
+    "pair_sort": (pair_sort, "broadphase_tpu_torch/csrc/pairsort.cu",
+                  "none (lax.sort in broadphase_tpu/layer.py "
+                  "canonical_pairs)", "step", K8_NAMES),
 }
 
 # The least time the card could take: the
@@ -153,6 +163,7 @@ LAYER_OF_KERNEL = (("build_kernel", "k1 build"),
                    ("expand_partitioned", "k4 expand"),
                    ("compact_onepass", "k5 compact"),
                    ("merge_path", "k6 merge"),
+                   ("pairsort_", "k8 pair sort"),
                    ("RadixSort", "torch.sort"), ("Memcpy", "copies"),
                    ("Memset", "copies"))
 
@@ -347,10 +358,11 @@ def compare_build(inputs, out_cap, spec=SPEC, min_depth=0, slots=2):
     return err, (int(want[3]), bool(want[4]))
 
 
-def compare_all(state, inputs, emit_cap):
-    """Kernels 1-5 and 7 against their plain versions on one step's inputs
-    (kernel 3 also without meta and kernel 7 on both entry points, as the
-    v2 scan and the JAX function's contract run them).  Returns ({name:
+def compare_all(state, inputs, emit_cap, pair_cap):
+    """Kernels 1-5, 7 and 8 against their plain versions on one step's
+    inputs (kernel 3 also without meta, kernel 7 on both entry points, as
+    the v2 scan and the JAX function's contract run them, and kernel 8 on
+    the emissions into a pair buffer of ``pair_cap``).  Returns ({name:
     max_abs_err}, {name: (args, plain function, bytes the function moves,
     library call or None)}, {name: the same for the v2 scan's kernel 3 and
     the JAX-shaped kernel 7})."""
@@ -365,8 +377,8 @@ def compare_all(state, inputs, emit_cap):
     timed["run_ends"] = ((SPEC, keys, aux), scan_pass1_plain,
                          nbytes(keys, aux, e, ameta, bmeta), None)
     lane = torch.arange(cap, device=keys.device)
-    rule = (torch.where(lane < state.count, state.ids, 0).max()
-            < layer._RULE_ID_BOUND)
+    max_id = torch.where(lane < state.count, state.ids, 0).max()
+    rule = max_id < layer._RULE_ID_BOUND
 
     prepped = prep_runs(e, state.ids, bmeta, state.count)
     errs["prep_runs"] = max_abs_err(
@@ -393,6 +405,19 @@ def compare_all(state, inputs, emit_cap):
     timed["stream_compact"] = ((valid, (a, b)), stream_compact_plain,
                                nbytes(valid, a, b) + nbytes(*got),
                                lambda: (a[valid], b[valid]))
+
+    # kernel 8 as the canonical scan runs it: the emissions compacted into
+    # the pair buffer inside the chain, valid where a != b, the tree's
+    # largest live id as the bound.  Its bound counts the contract, each live pair read and each
+    # kept pair written once at 8 bytes; the library call is the sort the
+    # port ran before (torch.sort of the 64-bit key)
+    sargs = (a, b, None, pair_cap, max_id)
+    errs["pair_sort"] = compare_pair_sort(*sargs)
+    live = min(int(valid.sum()), pair_cap)
+    key = torch.where(valid, (a - (1 << 31)) * (1 << 32) + b, PAD_KEY)
+    timed["pair_sort"] = (sargs, pair_sort_plain,
+                          8 * (live + int(pair_sort(*sargs)[2])),
+                          lambda: torch.sort(key))
 
     # the v2 scan on the same tree: kernel 3 without meta, then kernel 7 on
     # its entries; and kernel 7 through the JAX function's contract
@@ -495,12 +520,168 @@ def adversarial(dev):
             n_cases += 1
         state = layer.build(SPEC, *scene, out_capacity=8 * n, device=dev)
         for emit_cap in (64 * n + 1, 1000):  # the second is below total
-            compare_all(state, inputs, emit_cap)
-            n_cases += 5
+            compare_all(state, inputs, emit_cap, emit_cap // 2 + 1)
+            n_cases += 6
     return (n_cases + pass1_adversarial(dev) + compact_adversarial(dev)
             + prep_adversarial(dev) + build_adversarial(dev)
             + expand2_adversarial(dev) + merge_adversarial(dev)
-            + expand_adversarial(dev))
+            + expand_adversarial(dev) + pair_sort_adversarial(dev))
+
+
+def compare_pair_sort(a, b, valid, cap, bound=None) -> float:
+    """Kernel 8 against its plain version: (a, b, count, total) and the
+    passes counter, exact, and both ``_stage`` cuts' sums.  Run it with
+    no launch count open: it drains the port's counters.  Returns
+    max_abs_err."""
+    with profiling.tracing():
+        profiling.counters()
+        got = pair_sort(a, b, valid, cap, bound)
+        passes = profiling.counters().get("scan.sort_passes")
+    want = pair_sort_plain(a, b, valid, cap, bound)
+    err = max_abs_err(got, want[:4])
+    check(passes == int(want[4]), f"pair_sort: {passes} passes, the plain "
+          f"version plans {int(want[4])}")
+    for stage in ("compact", "sort_pairs"):
+        cut = pair_sort(a, b, valid, cap, bound, stage)
+        plain = pair_sort_plain(a, b, valid, cap, bound, stage)
+        max_abs_err(*((x,) if torch.is_tensor(x) else x
+                      for x in (cut, plain)))
+    return err
+
+
+def pair_sort_adversarial(dev):
+    """Kernel 8 on what its chain can get wrong: every id width its key
+    packs (all ids 0, 1, a byte, either side of 2^20, 2^24, 2^32 - 2), a
+    prefix, scattered, no and every lane valid, lengths one below, at and
+    one above a tile multiple, 1000+ tiles, repeated pairs (one pair
+    repeated everywhere too), digits every key shares, an id bound wider
+    than the ids, the emission buffer compacted into a pair buffer that
+    the valid lanes fill exactly, overflow by one and leave short, empty
+    input and output, and two calls in a row on one stream."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    tile = 4096
+
+    def ids(top, n):
+        return (torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+                * (top + 1)).to(torch.int64).clamp(max=top)
+
+    def valid_of(pattern, n):
+        lane = torch.arange(n, device=dev)
+        return {"prefix": lane < (2 * n) // 3,
+                "scattered": torch.rand(n, generator=gen, device=dev) < 0.45,
+                "none": lane < 0, "all": lane >= 0}[pattern]
+
+    cases = 0
+    for top in (0, 1, 2 ** 8 - 1, 2 ** 20 - 2, 2 ** 20 - 1, 2 ** 24,
+                2 ** 32 - 2):
+        for pattern in ("prefix", "scattered", "none", "all"):
+            for n in (3000, 3 * tile - 1, 3 * tile, 3 * tile + 1):
+                a, b = ids(top, n), ids(top, n)
+                compare_pair_sort(a, b, valid_of(pattern, n), n)
+                cases += 1
+    n = 1100 * tile + 77                                    # 1000+ tiles
+    for top in (2 ** 20 - 1, 2 ** 32 - 2):
+        a, b = ids(top, n), ids(top, n)
+        compare_pair_sort(a, b, valid_of("scattered", n), n)
+        # the emissions compacted into a smaller pair buffer
+        compare_pair_sort(a, b, valid_of("scattered", n), n // 3)
+        cases += 2
+    pool = ids(2 ** 20 - 1, 2 * 500).reshape(2, 500)
+    pick = torch.randint(0, 500, (50 * tile,), generator=gen, device=dev)
+    compare_pair_sort(pool[0][pick], pool[1][pick], valid_of("all", 50 * tile),
+                      50 * tile)                             # repeats
+    one = torch.full((9 * tile + 5,), 12345, device=dev)
+    compare_pair_sort(one, one + 1, valid_of("all", one.shape[0]),
+                      one.shape[0])                          # one pair
+    off = 2 ** 25 + ids(2 ** 12 - 1, 2 * 20 * tile).reshape(2, -1)
+    compare_pair_sort(off[0], off[1], valid_of("all", 20 * tile),
+                      20 * tile)                       # digits shared
+    a, b = ids(1000, 5 * tile), ids(1000, 5 * tile)
+    compare_pair_sort(a, b, valid_of("scattered", 5 * tile), 5 * tile,
+                      torch.tensor(2 ** 31, device=dev))     # wide bound
+    cases += 4
+    # the folded compaction at, one over and under the pair buffer
+    n, cap = 30 * tile + 9, 7 * tile + 3
+    for kept in (cap, cap + 1, cap - 100):
+        valid = torch.zeros(n, dtype=torch.bool, device=dev)
+        valid[torch.randperm(n, generator=gen, device=dev)[:kept]] = True
+        a, b = ids(2 ** 20 - 1, n), ids(2 ** 20 - 1, n)
+        compare_pair_sort(a, b, valid, cap, torch.tensor(2 ** 20 - 1,
+                                                         device=dev))
+        cases += 1
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    for cap in (0, 10):
+        compare_pair_sort(empty, empty, empty != 0, cap)
+        cases += 1
+    a, b = ids(2 ** 20 - 1, tile), ids(2 ** 20 - 1, tile)
+    compare_pair_sort(a, b, valid_of("all", tile), 0)        # no output
+    # no valid bytes: a lane is valid where its ids differ (the expansion
+    # writes PAD on both sides of a dropped or empty slot), with and
+    # without the id bound
+    for n, cap in ((3 * tile + 1, 3 * tile + 1), (30 * tile + 9, 7 * tile)):
+        a, b = ids(2 ** 20 - 1, n), ids(2 ** 20 - 1, n)
+        pad = torch.rand(n, generator=gen, device=dev) < 0.4
+        a[pad], b[pad] = 0xFFFF_FFFF, 0xFFFF_FFFF
+        b[::97] = a[::97]
+        for bound in (torch.tensor(2 ** 20 - 1, device=dev), None):
+            compare_pair_sort(a, b, None, cap, bound)
+            cases += 1
+    # two calls in a row on the stream: the second's status words and
+    # tickets must start clean
+    a, b = ids(2 ** 20 - 1, 40 * tile), ids(2 ** 20 - 1, 40 * tile)
+    v1, v2 = valid_of("scattered", 40 * tile), valid_of("prefix", 40 * tile)
+    got1 = pair_sort(a, b, v1, 40 * tile)
+    got2 = pair_sort(b, a, v2, 40 * tile)
+    max_abs_err(got1, pair_sort_plain(a, b, v1, 40 * tile)[:4])
+    max_abs_err(got2, pair_sort_plain(b, a, v2, 40 * tile)[:4])
+    return cases + 2
+
+
+@contextlib.contextmanager
+def pair_sort_checked(shapes: list):
+    """Inside, every canonical scan's kernel 8 is followed by its plain
+    version on the same inputs, compared exactly; ``shapes`` gathers each
+    call's (input lanes, output lanes)."""
+    real = layer.pair_sort
+
+    def checked(a, b, valid, capacity, id_bound=None, _stage="full_stream"):
+        got = real(a, b, valid, capacity, id_bound, _stage)
+        if _stage == "full_stream":
+            max_abs_err(got, pair_sort_plain(a, b, valid, capacity,
+                                             id_bound)[:4])
+            shapes.append((a.shape[0], capacity))
+        return got
+
+    layer.pair_sort = checked
+    try:
+        yield
+    finally:
+        layer.pair_sort = real
+
+
+def dedup_exchange_input(want, n, dev, world=4, seed=9):
+    """One rank's class in the sharded dedup at 1M (``parallel.scan.
+    dedup_exchange``'s ``D * xcap`` lanes): the oracle's pairs spread over
+    ``world`` source ranks, a tenth sent from two of them, each source's
+    pairs that rank 0 owns (the Fibonacci hash of the first id) sorted in
+    a row of ``xcap`` lanes, PAD past them.  Returns (a, b, the class's
+    pairs)."""
+    xcap = sharded_caps(n, world)["exchange"]
+    rng = np.random.default_rng(seed)
+    pairs = want.astype(np.int64)
+    owner = parallel.scan._fib_owner(torch.as_tensor(pairs[:, 0]),
+                                     world).numpy()
+    mine = pairs[owner == 0]
+    src = rng.integers(0, world, mine.shape[0])
+    twice = rng.random(mine.shape[0]) < 0.1
+    rows = np.full((world, xcap, 2), 0xFFFF_FFFF, np.int64)
+    for s in range(world):
+        row = mine[(src == s) | (twice & ((src + 1) % world == s))]
+        row = row[np.lexsort((row[:, 1], row[:, 0]))][:xcap]
+        rows[s, :row.shape[0]] = row
+    a, b = (torch.as_tensor(np.ascontiguousarray(rows[..., j].reshape(-1)),
+                            device=dev) for j in (0, 1))
+    return a, b, mine
 
 
 def synthetic_keys(spec, n, digits, pad_from, seed):
@@ -1948,7 +2129,7 @@ def traverse_phase(scene_big, dev, fresh):
 
 SHARDED_WORLDS = ((1, "nccl"), (4, "gloo"))
 STEP_KERNELS = ("emit_build", "run_ends", "prep_runs", "expand_pairs_prepped",
-                "stream_compact")
+                "pair_sort")
 
 
 def sharded_caps(n: int, world: int) -> dict:
@@ -2390,7 +2571,7 @@ def demo_phase(dev, n=2500, frames=300):
         routes[f"ball_pit_{mode}"] = tally.total
     check(all(routes["ball_pit_default"][k] > 0 for k in
               ("emit_build", "run_ends", "prep_runs", "expand_pairs_prepped",
-               "stream_compact")),
+               "pair_sort")),
           f"ball pit demo: a kernel of the frame was not launched: "
           f"{routes['ball_pit_default']}")
     buf = io.StringIO()
@@ -2455,7 +2636,7 @@ def cli_phase(dev, counts=(("10k", 10_000), ("1M", 1_000_000))):
                          f"cells, {pairs} pairs)")
     check(all(tally.total[k] > 0 for k in (
         "emit_build", "run_ends", "prep_runs", "expand_pairs_prepped",
-        "stream_compact")), f"CLI: a kernel was not launched: "
+        "pair_sort")), f"CLI: a kernel was not launched: "
           f"{tally.total}")
     print("CLI (gen_boxes seed 0, density 1/1000, sizes 1-10; "
           "gen_validation_data on the card): the golden trio equals "
@@ -2574,9 +2755,11 @@ def bench_phase(dev, want):
                 n, dev, iters=0, want=want)}
     step_kernels = [k for k, v in KERNELS.items() if v[3] == "step"]
     routes, pairs = {}, {}
+    checked = []
     for route, run in runs.items():
         reset_launches()
-        out = run()
+        with pair_sort_checked(checked):
+            out = run()
         routes[route] = read_launches()
         check(out["verified"] and not out["overflow"],
               f"bench {route}: {out['pairs']} pairs differ from the "
@@ -2591,7 +2774,8 @@ def bench_phase(dev, want):
           f"1M step's equal the oracle's offset by 2^25, Index64_2D 1M's "
           f"and the 10k ball pit's (tree and pairs) the CPU path's, the "
           f"merge + parity-filtered scan's the oracle's so filtered; no "
-          f"overflow; launches {routes}")
+          f"overflow; kernel 8 equal to its plain version at (input, "
+          f"output) lanes {checked}; launches {routes}")
     return routes
 
 
@@ -2630,7 +2814,7 @@ def main() -> int:
     inputs = build_inputs(scene_big, dev)
     state_big = layer.build(SPEC, *scene_big, out_capacity=tree_cap,
                             device=dev)
-    errs, timed, extra = compare_all(state_big, inputs, emit_cap)
+    errs, timed, extra = compare_all(state_big, inputs, emit_cap, pair_cap)
     # kernel 1 at 1M with the tree a third of the count: the same prefix
     errs["emit_build"] = max(errs["emit_build"],
                              compare_build(inputs, tree_cap // 3)[0])
@@ -2705,11 +2889,20 @@ def main() -> int:
     # 5. slice at 1M: the main path, counted launches, oracle, step times
     scene_t = to_device(scene_big, dev)
     reset_launches()
-    state, res = step(scene_t, tree_cap, pair_cap, emit_cap, True)
+    checked = []
+    with pair_sort_checked(checked):
+        state, res = step(scene_t, tree_cap, pair_cap, emit_cap, True)
     step_launches = read_launches()
     step_kernels = [k for k, v in KERNELS.items() if v[3] == "step"]
     check(all(step_launches[k] > 0 for k in step_kernels),
           f"1M: a kernel of the path was not launched: {step_launches}")
+    reset_launches()
+    step(scene_t, tree_cap, pair_cap, emit_cap, False)
+    unsorted_launches = read_launches()
+    check(unsorted_launches["pair_sort"] == 0
+          and unsorted_launches["stream_compact"] > 0,
+          f"1M canonical=False: kernel 8 launched or kernel 5 not: "
+          f"{unsorted_launches}")
     check(not bool(state.overflow) and not bool(res.overflow), "1M: overflow")
     want_keys, want_ids, want = oracle(native, scene_big)
     keys, ids, _ = layer.tree_to_numpy(SPEC, state)
@@ -2719,9 +2912,20 @@ def main() -> int:
     check(got.shape == want.shape and np.array_equal(got, want),
           f"1M: {got.shape[0]} canonical pairs differ from the oracle's "
           f"{want.shape[0]}")
+    # kernel 8 on one rank's class of the sharded dedup at world 4
+    xa, xb, mine = dedup_exchange_input(want, n_big, dev)
+    with pair_sort_checked(checked):
+        da, db, dcount = layer.canonical_pairs(xa, xb, xa != 0xFFFF_FFFF)
+    dn = int(dcount)
+    check(np.array_equal(torch.stack([da[:dn], db[:dn]], 1).cpu().numpy(),
+                         np.unique(mine, axis=0)),
+          "sharded dedup input: kernel 8's pairs differ from the class's")
     print(f"slice 1M: tree ({len(want_ids)} cells) and {want.shape[0]} "
-          f"canonical pairs equal the oracle; launches {step_launches}; "
-          f"scene sha1 {scene_digest(scene_big)} (numpy {np.__version__})")
+          f"canonical pairs equal the oracle; launches {step_launches}, "
+          f"canonical=False {unsorted_launches}; kernel 8 equal to its "
+          f"plain version at (input, output) lanes {checked}, the second "
+          f"one rank's sharded dedup ({dn} pairs); scene sha1 "
+          f"{scene_digest(scene_big)} (numpy {np.__version__})")
 
     step_p50 = {}
     for canonical in (True, False):
@@ -2755,8 +2959,9 @@ def main() -> int:
     # rule, so its pair buffer holds raw emissions before the dedup, and is
     # sized as the emission buffer (bench_caps: the wide-id regime's rule)
     reset_launches()
-    _, res2 = layer.scan(SPEC, state, emit_cap, emit_capacity=emit_cap,
-                         expand="v2")
+    with pair_sort_checked(checked):    # no id bound: the bound kernel
+        _, res2 = layer.scan(SPEC, state, emit_cap, emit_capacity=emit_cap,
+                             expand="v2")
     v2_launches = read_launches()
     check(all(v2_launches[k] > 0 for k in ("run_ends", "prep_runs",
                                            "expand_pairs")),
@@ -2782,7 +2987,9 @@ def main() -> int:
     v2_ms = host_ms(v2_step, 20)
     v2_p50 = np.percentile(v2_ms, 50)
     print(f"scan_v2 1M: {got2.shape[0]} canonical pairs equal the oracle, "
-          f"and the set of its {int(ures2.count)} emission-order pairs; "
+          f"kernel 8's equal to its plain version at (input, output) lanes "
+          f"{checked[-1]}, and the set of its {int(ures2.count)} "
+          f"emission-order pairs; "
           f"overflow {bool(res2.overflow)}; launches {v2_launches}; step "
           f"(build + v2 scan) p50 {v2_p50:.3f} ms (20)")
     layers, ops = device_ms_by_layer(v2_step)
@@ -2806,8 +3013,8 @@ def main() -> int:
          for k, r in results.items()}))
 
     # 8. every kernel timed at the main path's shapes
-    launches = {"step": step_launches, "frame": frame_launches,
-                "scan_v2": v2_launches}
+    launches = {"step": step_launches, "step_unsorted": unsorted_launches,
+                "frame": frame_launches, "scan_v2": v2_launches}
     # ms: CUDA events around one wrapper call (allocations and the host's
     # enqueue included); device_ms: the profiler's device time of the
     # kernel's own launches, per call over 10 calls, the median of

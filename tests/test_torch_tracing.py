@@ -11,6 +11,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from broadphase_tpu_torch import bench_caps, layer, profiling
 from broadphase_tpu_torch import index as tidx
+from broadphase_tpu_torch.ops import pairsort
 from broadphase_tpu_torch.ops.prep import prep_runs
 from broadphase_tpu_torch.ops.runends import scan_pass1
 
@@ -18,19 +19,18 @@ SPEC = tidx.Index64_3D
 N = 1500
 TREE, PAIRS, EMIT = 8 * N, 24 * N, 40 * N
 
-# (scan options, the stages it opens besides pass1, prep and expand)
+# (scan options, the stages it opens besides pass1, prep and expand): a
+# canonical scan compacts its emissions inside the pair sort (kernel 8)
 SCANS = {
     "canonical": (dict(emit_capacity=PAIRS), ["scan.canonical"]),
-    "canonical_wide_emit": (dict(emit_capacity=EMIT),
-                            ["scan.compact", "scan.canonical"]),
+    "canonical_wide_emit": (dict(emit_capacity=EMIT), ["scan.canonical"]),
     "unsorted": (dict(emit_capacity=EMIT, canonical=False),
                  ["scan.compact"]),
     "nested_ids": (dict(emit_capacity=EMIT, nested_ids=True),
-                   ["scan.nested", "scan.compact", "scan.canonical"]),
+                   ["scan.nested", "scan.canonical"]),
     "nested_ids_unsorted": (dict(nested_ids=True, canonical=False),
                             ["scan.nested", "scan.compact"]),
-    "v2": (dict(emit_capacity=EMIT, expand="v2"),
-           ["scan.compact", "scan.canonical"]),
+    "v2": (dict(emit_capacity=EMIT, expand="v2"), ["scan.canonical"]),
 }
 BUILD_STAGES = ["build.quantize", "build.emit", "build.sort"]
 
@@ -138,7 +138,16 @@ def test_scan_counters_equal_the_result_and_the_prep_total(case):
     aux = state.aux if v3 and not opts.get("nested_ids") else None
     e, _, bmeta = scan_pass1(SPEC, keys, aux, rules=v3)
     total = prep_runs(e, ids, bmeta, count)[5]
-    assert got == {"scan.emitted": int(total), "scan.pairs": int(res.count)}
+    want = {"scan.emitted": int(total), "scan.pairs": int(res.count)}
+    if opts.get("canonical", True):
+        # the pair sort's passes: the digits of the packed pairs, 2 x 11
+        # bits for ids below 1500, that vary over the pairs
+        w = int(ids[:int(count)].max()).bit_length()
+        n = int(res.count)
+        want["scan.sort_passes"] = int(pairsort.plan_passes(
+            (res.pairs_a[:n] << w) | res.pairs_b[:n], w))
+        assert want["scan.sort_passes"] == 3
+    assert got == want
     assert 0 < got["scan.pairs"] <= got["scan.emitted"]
 
 
@@ -165,9 +174,14 @@ def test_counters_sum_host_and_device_values_and_clear():
         profiling.count("scan.pairs", torch.tensor(7))
         profiling.count("scan.pairs", torch.tensor([5], dtype=torch.int32))
         profiling.count("scan.emitted", torch.tensor(np.int64(2 ** 40)))
+        profiling.count("k8.launches", 1)
+        profiling.count("scan.sort_passes", torch.tensor(5))
+        profiling.count("scan.sort_passes", torch.tensor(8))
     profiling.count("scan.emitted", 1)       # tracing off: not kept
     assert profiling.counters() == {"k5.launches": 3, "scan.pairs": 12,
-                                    "scan.emitted": 2 ** 40}
+                                    "scan.emitted": 2 ** 40,
+                                    "k8.launches": 1,
+                                    "scan.sort_passes": 13}
     assert profiling.counters() == {}
 
 
@@ -189,6 +203,7 @@ def test_tracing_restores_the_state_and_a_bare_call_sets_it():
 def test_registered_names_are_unique_and_stages_follow_their_layer():
     assert len(set(profiling.SPANS)) == len(profiling.SPANS)
     assert len(set(profiling.COUNTERS)) == len(profiling.COUNTERS)
+    assert {"k8.launches", "scan.sort_passes"} <= set(profiling.COUNTERS)
     for name in profiling.SPANS:
         group, _ = name.split(".")
         if group != "layer":
