@@ -391,36 +391,47 @@ def merge(spec: IndexSpec, state: LayerState, other: LayerState
       sorted only if it was and ``other`` is empty: that reads
       ``other.count`` on the host, only when ``state`` is sorted.
 
-    ``invalid_count`` is ``state``'s own, as in the JAX package."""
-    a, b = int(state.min_depth), int(other.min_depth)
-    if a != b:
-        logging.getLogger("broadphase_tpu_torch").warning(
-            "merging layers with different min_depth (%d != %d); "
-            "adopting the smaller", a, b)
-    cap = capacity_of(state)
-    if bool(state.sorted) and bool(other.sorted):
-        (keys, meta), count, _ = merge_cancel_compact(
-            *_merge_cols(spec, state), *_merge_cols(spec, other),
-            other.count, cap)
-        ids, aux = _unpack_meta(spec, meta, cap, count)
-        is_sorted = True
-    else:
-        src = torch.arange(capacity_of(other), dtype=torch.int64,
-                           device=state.ids.device)
-        dest = state.count + src
-        dest = torch.where((src < other.count) & (dest < cap), dest, cap)
-        keys = _place(state.keys, other.keys, dest)
-        ids = _place(state.ids, other.ids, dest)
-        aux = _place(state.aux, other.aux, dest)
-        is_sorted = bool(state.sorted) and int(other.count) == 0
-    total = state.count + other.count
-    return state._replace(
-        keys=keys, ids=ids, aux=aux,
-        count=total.clamp(max=cap),
-        sorted=_host(is_sorted, torch.bool),
-        min_depth=_host(min(a, b), torch.int64),
-        overflow=state.overflow | other.overflow | (total > cap),
-    )
+    ``invalid_count`` is ``state``'s own, as in the JAX package.  Under
+    ``profiling.tracing()`` the merge opens ``layer.merge`` with its stages
+    (``merge.cols``, ``merge.kernel``, ``merge.unpack``) and counts the
+    merged entries in ``merge.entries``."""
+    with profiling.span("layer.merge"):
+        a, b = int(state.min_depth), int(other.min_depth)
+        if a != b:
+            logging.getLogger("broadphase_tpu_torch").warning(
+                "merging layers with different min_depth (%d != %d); "
+                "adopting the smaller", a, b)
+        cap = capacity_of(state)
+        if bool(state.sorted) and bool(other.sorted):
+            with profiling.span("merge.cols"):
+                cols = (*_merge_cols(spec, state), *_merge_cols(spec, other))
+            with profiling.span("merge.kernel"):
+                (keys, meta), count, _ = merge_cancel_compact(
+                    *cols, other.count, cap)
+            with profiling.span("merge.unpack"):
+                ids, aux = _unpack_meta(spec, meta, cap, count)
+            is_sorted = True
+        else:
+            with profiling.span("merge.kernel"):
+                src = torch.arange(capacity_of(other), dtype=torch.int64,
+                                   device=state.ids.device)
+                dest = state.count + src
+                dest = torch.where((src < other.count) & (dest < cap), dest,
+                                   cap)
+                keys = _place(state.keys, other.keys, dest)
+                ids = _place(state.ids, other.ids, dest)
+                aux = _place(state.aux, other.aux, dest)
+            is_sorted = bool(state.sorted) and int(other.count) == 0
+        total = state.count + other.count
+        merged = state._replace(
+            keys=keys, ids=ids, aux=aux,
+            count=total.clamp(max=cap),
+            sorted=_host(is_sorted, torch.bool),
+            min_depth=_host(min(a, b), torch.int64),
+            overflow=state.overflow | other.overflow | (total > cap),
+        )
+        profiling.count("merge.entries", merged.count)
+    return merged
 
 
 # ---------------------------------------------------------------------------

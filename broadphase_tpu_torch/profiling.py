@@ -18,9 +18,9 @@ PyTorch counterparts of ``broadphase_tpu/utils/profiling.py``:
   windows; and :func:`pipelined_ms`, the host time of calls enqueued
   back to back (the stage profilers' columns);
 * :func:`tracing`, :func:`span`, :func:`count` and :func:`counters`: the
-  port's own spans at the stages of ``layer.build`` and ``layer.scan``
-  and its counters (emissions, pairs, sort passes, kernel launches), off
-  by default.
+  port's own spans at the stages of ``layer.build``, ``layer.scan`` and
+  ``layer.merge`` and its counters (emissions, pairs, sort passes, merged
+  entries, kernel launches), off by default.
 """
 
 from __future__ import annotations
@@ -232,13 +232,14 @@ def pipelined_ms(fn: Callable, device, batches: int = 3, batch: int = 8
 # a layer does between its stages is the layer's self time.
 SPANS = ("layer.build", "build.quantize", "build.emit", "build.sort",
          "layer.scan", "scan.nested", "scan.pass1", "scan.prep",
-         "scan.expand", "scan.compact", "scan.canonical")
+         "scan.expand", "scan.compact", "scan.canonical",
+         "layer.merge", "merge.cols", "merge.kernel", "merge.unpack")
 # Every counter: the emission slots a scan fills (``prep_runs``' total),
 # the pairs it keeps and the radix passes of its canonical pair sort that
-# did work, and each kernel's launches (k7: ``expand_pairs_entries``; k8:
-# the pair sort's chain).
-COUNTERS = ("scan.emitted", "scan.pairs", "scan.sort_passes") + tuple(
-    f"k{k}.launches" for k in range(1, 9))
+# did work, the entries a merge leaves in its layer, and each kernel's
+# launches (k7: ``expand_pairs_entries``; k8: the pair sort's chain).
+COUNTERS = ("scan.emitted", "scan.pairs", "scan.sort_passes",
+            "merge.entries") + tuple(f"k{k}.launches" for k in range(1, 9))
 
 _NO_SPAN = contextlib.nullcontext()
 _tracing = False

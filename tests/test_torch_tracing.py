@@ -1,8 +1,9 @@
 """The port's spans and counters (``broadphase_tpu_torch.profiling``):
-under ``profiling.tracing()`` ``layer.build`` and ``layer.scan`` open
-exactly their registered stage spans, each inside its layer; with tracing
-off they open none and keep no counter; the scan's counters equal what
-the scan computed; and tracing changes no output."""
+under ``profiling.tracing()`` ``layer.build``, ``layer.scan`` and
+``layer.merge`` open exactly their registered stage spans, each inside
+its layer; with tracing off they open none and keep no counter; the
+scan's and the merge's counters equal what they computed; and tracing
+changes no output."""
 
 import numpy as np
 import pytest
@@ -33,6 +34,12 @@ SCANS = {
     "v2": (dict(emit_capacity=EMIT, expand="v2"), ["scan.canonical"]),
 }
 BUILD_STAGES = ["build.quantize", "build.emit", "build.sort"]
+# (how the layer merged in is made, the stages the merge opens): a sorted
+# layer goes through the merge kernel (k6), an unsorted one is appended
+MERGES = {
+    "sorted": ("build", ["merge.cols", "merge.kernel", "merge.unpack"]),
+    "append": ("extend", ["merge.kernel"]),
+}
 
 
 @pytest.fixture(autouse=True)
@@ -107,6 +114,7 @@ def test_every_span_opened_is_registered(monkeypatch, case):
         empty = layer.make_layer(SPEC, TREE, device="cpu")
         grown = layer.extend(SPEC, empty, *scene)
         layer.merge(SPEC, state, grown)
+        layer.merge(SPEC, state, _build(_scene(seed=1)))
         layer.scan_auto(SPEC, state, initial_capacity=1024)
     assert opened and set(opened) <= set(profiling.SPANS)
     assert set(profiling.counters()) <= set(profiling.COUNTERS)
@@ -167,6 +175,54 @@ def test_tracing_changes_no_output(case):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _merge_pair(case):
+    """(a static layer at twice the tree's capacity, the layer merged into
+    it, made as ``MERGES[case]`` says), of two scenes."""
+    target = layer.build(SPEC, *_scene(seed=7), out_capacity=2 * TREE,
+                         device="cpu")
+    other = _scene(seed=8)
+    if MERGES[case][0] == "build":
+        return target, _build(other)
+    empty = layer.make_layer(SPEC, TREE, device="cpu")
+    return target, layer.extend(SPEC, empty, *other)
+
+
+@pytest.mark.parametrize("case", MERGES)
+def test_merge_opens_its_stages_inside_it(case):
+    target, other = _merge_pair(case)
+    assert _spans(lambda: layer.merge(SPEC, target, other)) == (
+        [("layer.merge", None)]
+        + [(s, "layer.merge") for s in MERGES[case][1]])
+
+
+@pytest.mark.parametrize("case", MERGES)
+def test_merge_entries_equal_the_merged_count(case):
+    target, other = _merge_pair(case)
+    with profiling.tracing():
+        merged = layer.merge(SPEC, target, other)
+    got = profiling.counters()
+    # the CPU runs k6's plain version, which counts no launch
+    assert got == {"merge.entries": int(merged.count)}
+    assert int(merged.count) == int(target.count) + int(other.count)
+
+
+@pytest.mark.parametrize("case", MERGES)
+def test_merge_with_tracing_off_opens_no_span_and_changes_no_output(
+        monkeypatch, case):
+    target, other = _merge_pair(case)
+    with profiling.tracing():
+        traced = layer.merge(SPEC, target, other)
+    profiling.counters()
+
+    def refuse(name):
+        raise AssertionError(f"span {name!r} opened with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    plain = layer.merge(SPEC, target, other)
+    assert profiling.counters() == {}
+    assert all(torch.equal(a, b) for a, b in zip(traced, plain))
+
+
 def test_counters_sum_host_and_device_values_and_clear():
     with profiling.tracing():
         profiling.count("k5.launches", 1)
@@ -203,7 +259,10 @@ def test_tracing_restores_the_state_and_a_bare_call_sets_it():
 def test_registered_names_are_unique_and_stages_follow_their_layer():
     assert len(set(profiling.SPANS)) == len(profiling.SPANS)
     assert len(set(profiling.COUNTERS)) == len(profiling.COUNTERS)
-    assert {"k8.launches", "scan.sort_passes"} <= set(profiling.COUNTERS)
+    assert {"k8.launches", "scan.sort_passes",
+            "merge.entries"} <= set(profiling.COUNTERS)
+    assert {"layer.merge", "merge.cols", "merge.kernel",
+            "merge.unpack"} <= set(profiling.SPANS)
     for name in profiling.SPANS:
         group, _ = name.split(".")
         if group != "layer":
