@@ -41,13 +41,14 @@ from .ops.merge import merge_cancel_compact
 from .ops.pairsort import pair_sort
 from .ops.prep import prep_runs
 from .ops.runends import scan_pass1
+from .ops.treesort import NARROW_ID_BOUND, tree_sort
 from .scene import SceneLayer
 
 PAD_ID = 0xFFFF_FFFF
 
 # Wider live ids drop the aux bits, as the JAX package's packed tree sort
 # does (broadphase_tpu/layer.py:50, :413-424).
-_NARROW_ID_BOUND = (1 << 29) - 1
+_NARROW_ID_BOUND = NARROW_ID_BOUND
 # The emit-once rule is on only when every live id is below this bound
 # (broadphase_tpu/layer.py:943): the JAX kernels pack the rule bytes
 # beside 24-bit ids.
@@ -217,10 +218,12 @@ def _objects(dev, system_min, system_max, bounds_min, bounds_max, ids):
 
 def _build(spec: IndexSpec, system_min, system_max, bounds_min, bounds_max,
            ids, slots_per_axis: int = 2, min_depth: int = 0,
-           out_capacity: Optional[int] = None, device=None):
-    """:func:`build`, and the emitted aux bits with the tree's order of
-    them (``aux[perm]`` is the tree's aux before :func:`mask_aux`, which
-    ``update`` carries from frame to frame)."""
+           out_capacity: Optional[int] = None, device=None,
+           want_perm: bool = False):
+    """:func:`build`, and the emitted aux bits with, where ``want_perm``,
+    the tree's order of them (``aux[perm]`` is the tree's aux before
+    :func:`mask_aux`, which ``update`` carries from frame to frame; perm
+    is None otherwise)."""
     with profiling.span("layer.build"):
         dev = resolve_device(device, bounds_min, bounds_max, ids)
         with profiling.span("build.quantize"):
@@ -234,7 +237,10 @@ def _build(spec: IndexSpec, system_min, system_max, bounds_min, bounds_max,
                 spec, lmin, lmax, contained, ids, int(min_depth), out_cap,
                 slots_per_axis)
         with profiling.span("build.sort"):
-            skeys, sids, saux, perm = _sort_tree(spec, keys, fids, faux)
+            # the (key, id, aux) order of the JAX package's tree sort,
+            # aux masked by mask_aux: kernel 9 (ops/treesort.py)
+            skeys, sids, saux, perm = tree_sort(spec, keys, fids, faux,
+                                                want_perm)
         state = LayerState(
             keys=skeys,
             ids=sids,
@@ -259,26 +265,11 @@ def mask_aux(ids: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
     return torch.where(live & (max_id < _NARROW_ID_BOUND), aux, 0)
 
 
-def _sort_tree(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
-               aux: torch.Tensor):
-    """Order the (key, id, aux) tuples as the JAX package's tree sort does:
-    two stable library sorts, by ``(id << dim) | aux`` and then by key,
-    with aux masked by :func:`mask_aux` first.  Returns the sorted (keys,
-    ids, masked aux) and the permutation that sorts them."""
-    if ids.shape[0] == 0:
-        return keys, ids, aux, torch.zeros_like(ids)
-    masked = mask_aux(ids, aux)
-    order = torch.sort(ids * (1 << spec.dim) + masked, stable=True).indices
-    skeys, order2 = torch.sort(keys[order], stable=True)
-    perm = order[order2]
-    return skeys, ids[perm], masked[perm], perm
-
-
 def sort(spec: IndexSpec, state: LayerState) -> LayerState:
     """Sort the tree; a no-op for a sorted state."""
     if bool(state.sorted):
         return state
-    keys, ids, aux, _ = _sort_tree(spec, state.keys, state.ids, state.aux)
+    keys, ids, aux, _ = tree_sort(spec, state.keys, state.ids, state.aux)
     return state._replace(keys=keys, ids=ids, aux=aux,
                           sorted=_host(True, torch.bool))
 

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "bpt_merge": "ppppp" + "ppp" + "p" + "iii" + "p",
     "bpt_expand_v2": "pppp" + "pp" + "pp" + "ii" + "p",
     "bpt_pairsort": "pppp" + "pp" + "ppp" + "p" + "iii" + "p",
+    "bpt_treesort": "ppp" + "pppp" + "p" + "pppp" + "p" + "iiii" + "p",
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -127,6 +128,8 @@ def load() -> ctypes.CDLL:
         getattr(lib, name).argtypes = []
     lib.bpt_pairsort_scratch.restype = ctypes.c_int64
     lib.bpt_pairsort_scratch.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    lib.bpt_treesort_scratch.restype = ctypes.c_int64
+    lib.bpt_treesort_scratch.argtypes = [ctypes.c_int64]
     _lib = lib
     return lib
 
@@ -179,6 +182,12 @@ def pairsort_scratch(n: int, cap: int) -> int:
     """Words of scratch the pair-sort chain (``pairsort.cu``) needs for
     ``n`` input lanes and ``cap`` output lanes."""
     return load().bpt_pairsort_scratch(n, cap)
+
+
+def treesort_scratch(n: int) -> int:
+    """Words of scratch the tree-sort chain (``treesort.cu``) needs for
+    ``n`` lanes."""
+    return load().bpt_treesort_scratch(n)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -236,10 +236,13 @@ SPANS = ("layer.build", "build.quantize", "build.emit", "build.sort",
          "layer.merge", "merge.cols", "merge.kernel", "merge.unpack")
 # Every counter: the emission slots a scan fills (``prep_runs``' total),
 # the pairs it keeps and the radix passes of its canonical pair sort that
-# did work, the entries a merge leaves in its layer, and each kernel's
-# launches (k7: ``expand_pairs_entries``; k8: the pair sort's chain).
+# did work, the entries a merge leaves in its layer, the radix passes of
+# the build's tree sort that did work, and each kernel's launches (k7:
+# ``expand_pairs_entries``; k8: the pair sort's chain; k9: the tree
+# sort's chain).
 COUNTERS = ("scan.emitted", "scan.pairs", "scan.sort_passes",
-            "merge.entries") + tuple(f"k{k}.launches" for k in range(1, 9))
+            "merge.entries", "build.sort_passes") + tuple(
+                f"k{k}.launches" for k in range(1, 10))
 
 _NO_SPAN = contextlib.nullcontext()
 _tracing = False

@@ -113,7 +113,7 @@ def build_tracked(spec: IndexSpec, system_min, system_max, bounds_min,
     state, emitted_aux, perm = _build(
         spec, system_min, system_max, bounds_min, bounds_max, ids,
         slots_per_axis=slots_per_axis, min_depth=min_depth,
-        out_capacity=out_capacity, device=dev)
+        out_capacity=out_capacity, device=dev, want_perm=True)
     bmin, bmax = _f32(bounds_min, dev), _f32(bounds_max, dev)
     depth, tmin, tmax, contained = _signature(spec, system_min, system_max,
                                               bmin, bmax, min_depth)

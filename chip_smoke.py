@@ -1,9 +1,12 @@
-"""On-card smoke test of broadphase_tpu_torch: builds the eight CUDA kernels,
+"""On-card smoke test of broadphase_tpu_torch: builds the nine CUDA kernels,
 holds each against its plain PyTorch version (kernel 2, pass 1 of the scan,
 also against the run ends of the adjacent-LCA depths; kernel 1 slot for
 slot, also when the tree overflows; kernel 7 on both of its entry points;
 kernel 8, the canonical pair sort, at every id width its key packs and at
-each canonical path's own input, the sharded dedup's included),
+each canonical path's own input, the sharded dedup's included; kernel 9,
+the build's tree sort, on adversarial trees of the three specs, at the 1M
+emission and at each 1M step's build, also against the two stable sorts
+it replaced),
 drives the build + scan step at 30k and 1M boxes against the C++ oracle,
 the v2 scan at 1M, and the temporal-coherence update path at 1M boxes and
 four churn fractions (and a wide-ids frame) against a fresh build, aux
@@ -88,6 +91,7 @@ from broadphase_tpu_torch.ops.prep import prep_runs, prep_runs_plain
 from broadphase_tpu_torch.ops.runends import (adjacent_lca_depth,
                                               alpha_meta, run_ends_plain,
                                               scan_pass1, scan_pass1_plain)
+from broadphase_tpu_torch.ops.treesort import tree_sort, tree_sort_plain
 
 SPEC = Index64_3D
 # kernels 4 and 7 are one template, expand_partitioned_kernel<kRule>; the
@@ -98,6 +102,8 @@ K7_NAMES = ("expand_partitioned_kernel<false>",
             "expand_partitioned_kernelILb0E")
 K8_NAMES = ("pairsort_bound_kernel", "pairsort_pack_kernel",
             "pairsort_pass_kernel", "pairsort_finish_kernel")
+K9_NAMES = ("treesort_bound_kernel", "treesort_pack_kernel",
+            "treesort_pass_kernel", "treesort_finish_kernel")
 KERNELS = {
     # name: (wrapper, source, TPU kernel it replaces, path whose launches
     # the kernels line reports, names of the kernels its entry point
@@ -133,6 +139,10 @@ KERNELS = {
     "pair_sort": (pair_sort, "broadphase_tpu_torch/csrc/pairsort.cu",
                   "none (lax.sort in broadphase_tpu/layer.py "
                   "canonical_pairs)", "step", K8_NAMES),
+    # kernel 9, the build's tree sort's chain: no TPU kernel (lax.sort)
+    "tree_sort": (tree_sort, "broadphase_tpu_torch/csrc/treesort.cu",
+                  "none (lax.sort in broadphase_tpu/layer.py _sort_now)",
+                  "step", K9_NAMES),
 }
 
 # The least time the card could take: the
@@ -164,6 +174,7 @@ LAYER_OF_KERNEL = (("build_kernel", "k1 build"),
                    ("compact_onepass", "k5 compact"),
                    ("merge_path", "k6 merge"),
                    ("pairsort_", "k8 pair sort"),
+                   ("treesort_", "k9 tree sort"),
                    ("RadixSort", "torch.sort"), ("Memcpy", "copies"),
                    ("Memset", "copies"))
 
@@ -359,7 +370,7 @@ def compare_build(inputs, out_cap, spec=SPEC, min_depth=0, slots=2):
 
 
 def compare_all(state, inputs, emit_cap, pair_cap):
-    """Kernels 1-5, 7 and 8 against their plain versions on one step's
+    """Kernels 1-5 and 7-9 against their plain versions on one step's
     inputs (kernel 3 also without meta, kernel 7 on both entry points, as
     the v2 scan and the JAX function's contract run them, and kernel 8 on
     the emissions into a pair buffer of ``pair_cap``).  Returns ({name:
@@ -371,6 +382,19 @@ def compare_all(state, inputs, emit_cap, pair_cap):
     errs["emit_build"], _ = compare_build(inputs, cap)
     timed["emit_build"] = ((SPEC, *inputs, 0, cap), emit_build_plain,
                            nbytes(*inputs) + 20 * cap, None)
+
+    # kernel 9 on the step's emission, with and without the permutation,
+    # and against the two stable sorts it replaced.  Its bound counts the
+    # contract, each lane's key, id and aux read and written once (20
+    # bytes each way); the library call is those two sorts
+    emitted = emit_build(SPEC, *inputs, 0, cap)[:3]
+    errs["tree_sort"] = max(compare_tree_sort(SPEC, *emitted, want_perm,
+                                              old=True)[0]
+                            for want_perm in (True, False))
+    check(torch.equal(tree_sort(SPEC, *emitted)[0], state.keys),
+          "tree_sort: the emission's keys sorted differ from the build's")
+    timed["tree_sort"] = ((SPEC, *emitted), tree_sort_plain, 40 * cap,
+                          lambda: two_sorts(SPEC, *emitted))
 
     keys, aux = state.keys, state.aux
     errs["run_ends"], (e, ameta, bmeta) = compare_pass1(SPEC, keys, aux)
@@ -657,6 +681,203 @@ def pair_sort_checked(shapes: list):
         yield
     finally:
         layer.pair_sort = real
+
+
+def two_sorts(spec, keys, ids, aux):
+    """The port's tree sort before kernel 9: aux masked, then two stable
+    ``torch.sort`` over the whole capacity, by ``(id << dim) | aux`` and
+    by key.  Returns (keys, ids, aux, perm)."""
+    masked = layer.mask_aux(ids, aux)
+    order = torch.sort(ids * (1 << spec.dim) + masked, stable=True).indices
+    skeys, order2 = torch.sort(keys[order], stable=True)
+    perm = order[order2]
+    return skeys, ids[perm], masked[perm], perm
+
+
+def compare_tree_sort(spec, keys, ids, aux, want_perm=True, old=False,
+                      what="tree_sort"):
+    """Kernel 9 against its plain version: keys, ids, aux, the permutation
+    where asked for and the passes counter, exact; where ``old``, also
+    against the two stable sorts it replaced.  A failure names ``what``,
+    the column and the first lane that differs.  Run it with no launch
+    count open: it drains the port's counters.  Returns (max_abs_err,
+    passes)."""
+    with profiling.tracing():
+        profiling.counters()
+        got = tree_sort(spec, keys, ids, aux, want_perm)
+        passes = profiling.counters().get("build.sort_passes")
+    cols = 4 if want_perm else 3
+    check(want_perm == (got[3] is not None), f"{what}: a permutation "
+          f"returned {got[3] is not None}, asked for {want_perm}")
+    wants = {"plain": tree_sort_plain(spec, keys, ids, aux, want_perm)}
+    if old:
+        wants["two sorts"] = two_sorts(spec, keys, ids, aux)
+    for label, want in wants.items():
+        for c, (g, w) in enumerate(zip(got[:cols], want)):
+            bad = torch.nonzero(g != w).squeeze(1)
+            j = int(bad[0]) if bad.numel() else 0
+            check(not bad.numel(), f"{what} (perm {want_perm}): column {c} "
+                  f"differs from the {label} one at {bad.numel()} of "
+                  f"{g.shape[0]} lanes, from lane {j}: "
+                  f"{g[max(j - 2, 0):j + 3].tolist()} against "
+                  f"{w[max(j - 2, 0):j + 3].tolist()}")
+    check(passes == wants["plain"][4], f"{what}: {passes} passes, the "
+          f"plain version plans {wants['plain'][4]}")
+    return max_abs_err(got[:cols], wants["plain"][:cols]), passes
+
+
+def tree_sort_adversarial(dev):
+    """Kernel 9 on what its chain can get wrong, with and without the
+    permutation, for the three specs: ids in emission order, shuffled,
+    repeated with aux out of order, at the bound where aux is masked and
+    one below it, shuffled up to 2^32 - 2, every entry one tuple (all
+    ties); keys spread over their width, or few of them; pads at the end,
+    among the entries, and in runs of whole tiles (from lane 0 too, so a
+    tile looks back past them); lengths one below, at and one above a
+    tile multiple (the pack's, and the passes' in full trees); 1000+
+    tiles; empty, all-pad and full trees; one
+    out-of-order pair across a tile edge; and two calls in a row on one
+    stream.  Returns (cases, {case: passes})."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tile = 4096
+    passes = {}
+
+    def rand(top, n):
+        return (torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+                * (top + 1)).to(torch.int64).clamp(max=top)
+
+    def ids_of(pattern, n, dim=3):
+        """(ids, aux) of n live entries, three a made-up object; aux
+        below 2^dim."""
+        lane = torch.arange(n, device=dev)
+        obj = lane // 3
+        aux = (lane % 3).to(torch.int32)
+        if pattern == "emission":
+            return obj, aux
+        if pattern == "shuffled":
+            return torch.randperm(n, generator=gen, device=dev)[obj], aux
+        if pattern == "repeated":
+            return obj // 4, rand((1 << dim) - 1, n).to(torch.int32)
+        if pattern == "masked_at":
+            return obj + (2 ** 29 - 1), aux
+        if pattern == "narrow_top":
+            return obj + (2 ** 29 - 2) - obj[-1], aux
+        if pattern == "u32":
+            ids = rand(2 ** 32 - 2, n)
+            ids[n // 2] = 2 ** 32 - 2
+            return ids, aux
+        return torch.full_like(obj, 12345), torch.full_like(aux, dim - 1)
+
+    def with_pads(cols, layout):
+        """The first entries of n live ones laid over n lanes as
+        ``layout`` says, pads (``PAD_KEY``, ``PAD_ID``, 0) between."""
+        n = cols[0].shape[0]
+        lane = torch.arange(n, device=dev)
+        if layout == "end":
+            at = lane[:int(0.88 * n)]
+        elif layout == "interleaved":
+            at = lane[torch.rand(n, generator=gen, device=dev) < 0.88]
+        elif layout == "runs":   # the first 5000 lanes and tiles 2-3 pads
+            at = lane[(lane >= 5000) & ((lane < 2 * tile)
+                                        | (lane >= 4 * tile))]
+        else:
+            at = lane[:0]
+        out = (torch.full((n,), PAD_KEY, device=dev),
+               torch.full((n,), 0xFFFF_FFFF, device=dev),
+               torch.zeros(n, dtype=torch.int32, device=dev))
+        for o, c in zip(out, cols):
+            o[at] = c[:at.shape[0]]
+        return out
+
+    cases = 0
+    for spec in (Index64_3D, Index64_2D, Index32_2D):
+        top = 2 ** spec.key_bits - 1
+        for pattern in ("emission", "shuffled", "repeated", "masked_at",
+                        "narrow_top", "u32", "all_ties"):
+            for layout in ("end", "interleaved", "runs"):
+                for n in (3000, 3 * tile - 1, 3 * tile, 3 * tile + 1,
+                          6 * tile + 5):
+                    if layout == "runs" and n < 5 * tile:
+                        continue
+                    ids, aux = ids_of(pattern, n, spec.dim)
+                    keys = (torch.full_like(ids, 777) if pattern == "all_ties"
+                            else rand(top, n) if n % 2 else
+                            rand(15, n) << (spec.key_bits - 4))
+                    cols = with_pads((keys, ids, aux), layout)
+                    what = f"{spec.name}/{pattern}/{layout}/{n}"
+                    for want_perm in (False, True):
+                        _, passes[what] = compare_tree_sort(
+                            spec, *cols, want_perm, True, what)
+                        cases += 1
+    # 1000+ tiles, shuffled ids among scattered pads, and in order
+    n = 1100 * tile + 77
+    for pattern in ("shuffled", "emission"):
+        ids, aux = ids_of(pattern, n)
+        cols = with_pads((rand(2 ** 63 - 1, n), ids, aux), "interleaved")
+        for want_perm in (False, True):
+            _, passes[f"1100_tiles/{pattern}"] = compare_tree_sort(
+                SPEC, *cols, want_perm, old=True)
+            cases += 1
+    # one pair out of order across a tile edge, pads on both sides; then
+    # the same pair in order
+    n = 8 * tile
+    ids, aux = ids_of("emission", n)
+    keys, ids, aux = with_pads((rand(2 ** 63 - 1, n), ids, aux), "end")
+    ids[tile - 3:tile + 3], keys[tile - 3:tile + 3] = 0xFFFF_FFFF, PAD_KEY
+    aux[tile - 3:tile + 3] = 0
+    fixed = ids.clone()
+    fixed[tile + 3] = ids[tile - 4]
+    ids[tile + 3] = ids[tile - 4] - 1
+    _, broken = compare_tree_sort(SPEC, keys, ids, aux, True, old=True)
+    _, kept = compare_tree_sort(SPEC, keys, fixed, aux, True, old=True)
+    check(broken > kept, f"tree_sort: an order broken across a tile edge "
+          f"planned {broken} passes, the same in order {kept}")
+    cases += 2
+    # empty and all-pad trees; a full tree, then two calls in a row on one
+    # stream
+    for n in (0, 1, tile + 1):
+        ids, aux = ids_of("emission", n)
+        compare_tree_sort(SPEC, *with_pads((rand(2 ** 63 - 1, n), ids, aux),
+                                           "none"), True)
+        cases += 1
+    # full trees whose live count is one below, at and one above a
+    # multiple of a pass's tile (6144 records)
+    for n in (12287, 12288, 12289):
+        for pattern in ("emission", "shuffled"):
+            compare_tree_sort(SPEC, rand(2 ** 63 - 1, n), *ids_of(pattern, n),
+                              True, old=True, what=f"full/{pattern}/{n}")
+            cases += 1
+    ids, aux = ids_of("shuffled", 5 * tile)
+    keys = rand(2 ** 63 - 1, 5 * tile)
+    compare_tree_sort(SPEC, keys, ids, aux, True, old=True)
+    a = tree_sort(SPEC, keys, ids, aux, True)
+    b = tree_sort(SPEC, keys.flip(0), ids.flip(0), aux.flip(0), False)
+    max_abs_err(a, tree_sort_plain(SPEC, keys, ids, aux)[:4])
+    max_abs_err(b[:3], tree_sort_plain(SPEC, keys.flip(0), ids.flip(0),
+                                       aux.flip(0))[:3])
+    return cases + 3, passes
+
+
+@contextlib.contextmanager
+def tree_sort_checked(shapes: list):
+    """Inside, every build's kernel 9 is followed by its plain version on
+    the same inputs, compared exactly; ``shapes`` gathers each call's
+    lanes."""
+    real = layer.tree_sort
+
+    def checked(spec, keys, ids, aux, want_perm=False):
+        got = real(spec, keys, ids, aux, want_perm)
+        cols = 4 if want_perm else 3
+        max_abs_err(got[:cols], tree_sort_plain(spec, keys, ids, aux,
+                                                want_perm)[:cols])
+        shapes.append(keys.shape[0])
+        return got
+
+    layer.tree_sort = checked
+    try:
+        yield
+    finally:
+        layer.tree_sort = real
 
 
 def dedup_exchange_input(want, n, dev, world=4, seed=9):
@@ -1191,7 +1412,7 @@ def check_slice(native, scene, dev, tree_cap, pair_cap, emit_cap, label):
 
 
 # each kernel's launch counter (profiling.COUNTERS; KERNELS runs from k1
-# to k7), and the launches read since the last reset_launches()
+# to k9), and the launches read since the last reset_launches()
 KERNEL_COUNTER = {name: f"k{k}.launches"
                   for k, name in enumerate(KERNELS, 1)}
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -2831,6 +3052,22 @@ def main() -> int:
           f"{sum(glue.values()):.3f} ms, {glue_ops:.0f} device operations "
           f"(5 profiled calls)")
     n_cases = adversarial(dev)
+    k9_cases, k9_passes = tree_sort_adversarial(dev)
+    _, k9_1m = compare_tree_sort(SPEC, *emit_build(SPEC, *inputs, 0,
+                                                   tree_cap)[:3])
+    by_count = {}
+    for p in k9_passes.values():
+        by_count[p] = by_count.get(p, 0) + 1
+    print(f"tree sort (kernel 9): {k9_cases} adversarial cases exact against "
+          f"its plain version and the two stable sorts it replaced (the "
+          f"three specs; ids in emission order, shuffled, repeated with aux "
+          f"out of order, at and below the aux mask, up to 2^32 - 2, all "
+          f"ties; pads at the end, among the entries, in whole-tile runs; "
+          f"1000+ tiles; an order broken across a tile edge; empty, all-pad"
+          f" and full trees; two calls in a row), cases by passes "
+          f"{dict(sorted(by_count.items()))}; the 1M emission "
+          f"({tree_cap} lanes, {int(state_big.count)} live): {k9_1m} "
+          f"passes work")
     print(f"adversarial: {n_cases} kernel cases exact (empty, one element, "
           f"ragged sizes, depth-0 and shallow boxes, outside boxes, "
           f"undersized tree, total > emit_cap, ids either side of 2^24-1, "
@@ -2889,8 +3126,8 @@ def main() -> int:
     # 5. slice at 1M: the main path, counted launches, oracle, step times
     scene_t = to_device(scene_big, dev)
     reset_launches()
-    checked = []
-    with pair_sort_checked(checked):
+    checked, tree_checked = [], []
+    with pair_sort_checked(checked), tree_sort_checked(tree_checked):
         state, res = step(scene_t, tree_cap, pair_cap, emit_cap, True)
     step_launches = read_launches()
     step_kernels = [k for k, v in KERNELS.items() if v[3] == "step"]
@@ -2924,7 +3161,8 @@ def main() -> int:
           f"canonical pairs equal the oracle; launches {step_launches}, "
           f"canonical=False {unsorted_launches}; kernel 8 equal to its "
           f"plain version at (input, output) lanes {checked}, the second "
-          f"one rank's sharded dedup ({dn} pairs); scene sha1 "
+          f"one rank's sharded dedup ({dn} pairs), kernel 9 at lanes "
+          f"{tree_checked}; scene sha1 "
           f"{scene_digest(scene_big)} (numpy {np.__version__})")
 
     step_p50 = {}

@@ -12,7 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from broadphase_tpu_torch import bench_caps, layer, profiling
 from broadphase_tpu_torch import index as tidx
-from broadphase_tpu_torch.ops import pairsort
+from broadphase_tpu_torch.ops import pairsort, treesort
 from broadphase_tpu_torch.ops.prep import prep_runs
 from broadphase_tpu_torch.ops.runends import scan_pass1
 
@@ -223,6 +223,26 @@ def test_merge_with_tracing_off_opens_no_span_and_changes_no_output(
     assert all(torch.equal(a, b) for a, b in zip(traced, plain))
 
 
+@pytest.mark.parametrize("traced", [True, False])
+def test_build_counts_its_sort_passes_only_under_tracing(traced):
+    """On the CPU the tree sort's plain version counts the radix passes
+    that would work (``build.sort_passes``) under tracing, and nothing
+    outside it; no launch is counted."""
+    scene = _scene(seed=2)
+    with profiling.tracing(traced):
+        state = _build(scene)
+    got = profiling.counters()
+    if not traced:
+        assert got == {}
+        return
+    # the emission is in (id, aux) order: the passes are the key digits
+    # that vary over the live entries
+    live = state.keys[:int(state.count)]
+    want = treesort.digits_that_work(live, treesort.key_digits(SPEC))
+    assert got == {"build.sort_passes": want}
+    assert 0 < want < treesort.key_digits(SPEC)
+
+
 def test_counters_sum_host_and_device_values_and_clear():
     with profiling.tracing():
         profiling.count("k5.launches", 1)
@@ -233,11 +253,16 @@ def test_counters_sum_host_and_device_values_and_clear():
         profiling.count("k8.launches", 1)
         profiling.count("scan.sort_passes", torch.tensor(5))
         profiling.count("scan.sort_passes", torch.tensor(8))
+        profiling.count("k9.launches", 1)
+        profiling.count("build.sort_passes", torch.tensor(5))
+        profiling.count("build.sort_passes", 3)
     profiling.count("scan.emitted", 1)       # tracing off: not kept
     assert profiling.counters() == {"k5.launches": 3, "scan.pairs": 12,
                                     "scan.emitted": 2 ** 40,
                                     "k8.launches": 1,
-                                    "scan.sort_passes": 13}
+                                    "scan.sort_passes": 13,
+                                    "k9.launches": 1,
+                                    "build.sort_passes": 8}
     assert profiling.counters() == {}
 
 
@@ -259,8 +284,8 @@ def test_tracing_restores_the_state_and_a_bare_call_sets_it():
 def test_registered_names_are_unique_and_stages_follow_their_layer():
     assert len(set(profiling.SPANS)) == len(profiling.SPANS)
     assert len(set(profiling.COUNTERS)) == len(profiling.COUNTERS)
-    assert {"k8.launches", "scan.sort_passes",
-            "merge.entries"} <= set(profiling.COUNTERS)
+    assert {"k8.launches", "scan.sort_passes", "merge.entries",
+            "k9.launches", "build.sort_passes"} <= set(profiling.COUNTERS)
     assert {"layer.merge", "merge.cols", "merge.kernel",
             "merge.unpack"} <= set(profiling.SPANS)
     for name in profiling.SPANS:
