@@ -519,15 +519,15 @@ pairsort_finish_kernel(const unsigned long long* scratch, Layout l,
 
 // The chain on the stream: `valid` holds a byte a lane (NULL: a lane is
 // valid where a != b); `bound` is a device int64 at least every valid id
-// (NULL: the bound kernel computes one); `upto` 0 stops after the pack,
-// 1 after the passes, 2 runs the finish (out_a, out_b, count).  keys0 and
-// keys1 hold cap lanes each; the scratch holds bpt_pairsort_scratch(n, cap)
-// words, and its first words are the Info fields.
+// (NULL: the bound kernel computes one).  The chain runs the pack, the
+// passes and the finish (out_a, out_b, count).  keys0 and keys1 hold cap
+// lanes each; the scratch holds bpt_pairsort_scratch(n, cap) words, and
+// its first words are the Info fields.
 extern "C" int bpt_pairsort(const void* a, const void* b, const void* valid,
                             const void* bound, void* keys0, void* keys1,
                             void* out_a, void* out_b, void* count,
                             void* scratch, long long n, long long cap,
-                            long long upto, void* stream) {
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Layout l = layout(n, cap);
   unsigned long long* words = (unsigned long long*)scratch;
@@ -547,19 +547,17 @@ extern "C" int bpt_pairsort(const void* a, const void* b, const void* valid,
         (const unsigned char*)valid, (const long long*)a, (const long long*)b,
         n, cap, (const long long*)bound, words, l, (int)tiles_of(n),
         (unsigned long long*)keys0);
-  if (upto >= 1 && cap > 0)
+  if (cap > 0) {
     for (int p = 0; p < kMaxPasses; ++p)
       pairsort_pass_kernel<<<(unsigned)tiles_of(cap), kThreads, 0, s>>>(
           words, l, (unsigned long long*)keys0, (unsigned long long*)keys1,
           p);
-  if (upto >= 2) {
-    if (cap > 0)
-      pairsort_finish_kernel<<<(unsigned)tiles_of(cap), kThreads, 0, s>>>(
-          words, l, (const unsigned long long*)keys0,
-          (const unsigned long long*)keys1, (long long*)out_a,
-          (long long*)out_b, cap, (int)tiles_of(cap), (long long*)count);
-    else
-      err = cudaMemsetAsync(count, 0, sizeof(long long), s);
+    pairsort_finish_kernel<<<(unsigned)tiles_of(cap), kThreads, 0, s>>>(
+        words, l, (const unsigned long long*)keys0,
+        (const unsigned long long*)keys1, (long long*)out_a,
+        (long long*)out_b, cap, (int)tiles_of(cap), (long long*)count);
+  } else {
+    err = cudaMemsetAsync(count, 0, sizeof(long long), s);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

@@ -429,33 +429,22 @@ def merge(spec: IndexSpec, state: LayerState, other: LayerState
 # scan
 # ---------------------------------------------------------------------------
 
-# the prefixes of scan_pairs() that ``tools/profile_step.py`` times, in
-# order (after its own "build")
-SCAN_STAGES = ("run_ends", "prep", "gather", "compact", "sort_pairs",
-               "full_stream")
-
-
-def canonical_pairs(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor,
-                    _stage: str = "full_stream"
+def canonical_pairs(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort the valid (a, b) pairs, drop duplicates, compact to the front
     (kernel 8, ``ops/pairsort.py``): the pairs packed as ``(a << w) | b``,
     ``w`` the bit length of the largest valid id, radix-sorted and
-    deduplicated.  Returns (a, b, count), PAD past count; ``_stage``
-    "sort_pairs" stops after the sort and returns its passes instead
-    (:func:`scan_pairs`)."""
-    out = pair_sort(a, b, valid, a.shape[0], _stage=_stage)
-    return out if _stage == "sort_pairs" else out[:3]
+    deduplicated.  Returns (a, b, count), PAD past count."""
+    return pair_sort(a, b, valid, a.shape[0])[:3]
 
 
 def _finish_pairs(a, b, valid, pair_capacity: int, emit_capacity: int,
                   pair_overflow, extra_overflow, canonical: bool,
-                  _stage: str = "full_stream",
                   id_bound: Optional[torch.Tensor] = None) -> ScanResult:
     """The canonical sort + dedup of the first ``pair_capacity`` valid
     emissions (kernel 8 compacts a wider emission buffer itself; ``valid``
     None: those where a != b), or for ``canonical=False`` the emission
-    compaction alone (kernel 5); ``_stage`` as :func:`scan_pairs` says."""
+    compaction alone (kernel 5)."""
     if not canonical:
         with profiling.span("scan.compact"):
             (ca, cb), ccnt = stream_compact(valid, (a, b))
@@ -464,12 +453,6 @@ def _finish_pairs(a, b, valid, pair_capacity: int, emit_capacity: int,
             valid = a != PAD_ID
         return ScanResult(a, b, ccnt.clamp(max=pair_capacity),
                           pair_overflow | extra_overflow)
-    if _stage == "compact":
-        if emit_capacity > pair_capacity:
-            return pair_sort(a, b, valid, pair_capacity, id_bound, _stage)
-        return a[::4096].sum(), b[::4096].sum()
-    if _stage == "sort_pairs":
-        return pair_sort(a, b, valid, pair_capacity, id_bound, _stage)
     with profiling.span("scan.canonical"):
         out_a, out_b, count, total = pair_sort(a, b, valid, pair_capacity,
                                                id_bound)
@@ -534,8 +517,7 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                aux: Optional[torch.Tensor] = None,
                emit_capacity: Optional[int] = None,
                nested_ids: bool = False, canonical: bool = True,
-               expand: str = "v3", _stage: str = "full_stream"
-               ) -> ScanResult:
+               expand: str = "v3") -> ScanResult:
     """Pair expansion over a sorted tree (``broadphase_tpu.layer.scan_pairs``,
     its kernel path).
 
@@ -560,20 +542,9 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
     same entries without rule bytes, and the v2 expansion kernel
     (``ops/expand.py``) expands them with no emit-once rule, so duplicate
     emissions survive into ``canonical=False`` output.
-
-    ``_stage`` (``tools/profile_step.py``) cuts the canonical scan short
-    after a prefix of :data:`SCAN_STAGES` and returns small readings of
-    that stage's output: "run_ends" (k2), "prep" (k3), "gather" (the
-    expansion), "compact" (kernel 8's pack, which compacts the emissions,
-    where the emission buffer is wider than the pair buffer, else nothing
-    more than "gather"; its valid and packed counts) and "sort_pairs"
-    (kernel 8's pack and radix passes; the passes that did work).
     """
     if expand not in ("v2", "v3"):
         raise ValueError(f"expand must be 'v2' or 'v3', got {expand!r}")
-    if _stage not in SCAN_STAGES:
-        raise ValueError(f"_stage must be one of {SCAN_STAGES}, got "
-                         f"{_stage!r}")
     cap = ids.shape[0]
     dev = ids.device
     emit_cap = max(int(emit_capacity) if emit_capacity is not None
@@ -592,13 +563,9 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
         aux = None      # partial same-id blocks: the aux bits are stale
     with profiling.span("scan.pass1"):
         e, ameta, bmeta = scan_pass1(spec, keys, aux, rules=expand == "v3")
-    if _stage == "run_ends":
-        return e[::4096].sum()
     with profiling.span("scan.prep"):
         sv, ab, bid, bm, m, total, wrapped = prep_runs(e, ids, bmeta, count)
     profiling.count("scan.emitted", total)
-    if _stage == "prep":
-        return total, sv[::4096].sum()
     max_id = None   # the v2 scan leaves kernel 8 to find its id bound
     with profiling.span("scan.expand"):
         if expand == "v2":
@@ -611,8 +578,6 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
             a, b = expand_pairs_prepped(ids, ameta, sv, ab, bid, bm, m,
                                         total, emit_cap,
                                         max_id < _RULE_ID_BOUND, spec.dim)
-    if _stage == "gather":
-        return a[::4096].sum(), b[::4096].sum()
     # dropped emissions and slots >= total are PAD on both sides; kernel 8
     # finds a != b itself
     valid = None
@@ -623,9 +588,8 @@ def scan_pairs(spec: IndexSpec, keys: torch.Tensor, ids: torch.Tensor,
                                         device=dev)
     result = _finish_pairs(a, b, valid, pair_capacity, emit_cap,
                            wrapped | (total > emit_cap), extra_overflow,
-                           canonical, _stage, max_id)
-    if _stage == "full_stream":
-        profiling.count("scan.pairs", result.count)
+                           canonical, max_id)
+    profiling.count("scan.pairs", result.count)
     return result
 
 

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "bpt_expand": "pppppp" + "ppp" + "pp" + "iii" + "p",
     "bpt_merge": "ppppp" + "ppp" + "p" + "iii" + "p",
     "bpt_expand_v2": "pppp" + "pp" + "pp" + "ii" + "p",
-    "bpt_pairsort": "pppp" + "pp" + "ppp" + "p" + "iii" + "p",
+    "bpt_pairsort": "pppp" + "pp" + "ppp" + "p" + "ii" + "p",
     "bpt_treesort": "ppp" + "pppp" + "p" + "pppp" + "p" + "iiii" + "p",
 }
 

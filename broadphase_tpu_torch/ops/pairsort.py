@@ -29,8 +29,6 @@ from . import _cuda
 PAD_ID = 0xFFFF_FFFF
 DIGIT_BITS = 8
 MAX_LANES = 2 ** 31 - 1
-# "compact" stops after the pack, "sort_pairs" after the passes
-STAGES = ("compact", "sort_pairs", "full_stream")
 _SIGN = -(1 << 63)
 
 
@@ -54,16 +52,13 @@ def plan_passes(keys: torch.Tensor, w: int) -> torch.Tensor:
 
 def pair_sort_plain(a: torch.Tensor, b: torch.Tensor,
                     valid: Optional[torch.Tensor], capacity: int,
-                    id_bound=None, _stage: str = "full_stream"):
+                    id_bound=None):
     """The chain's arithmetic in torch.  Returns (out_a, out_b, count,
     total, passes): the sorted, deduplicated pairs of the first
     ``capacity`` valid lanes (``valid`` None: the lanes where a != b) in
     ``capacity`` lanes, PAD past the count;
     the count of valid lanes; the passes that did work.  ``id_bound``
-    (default: the largest valid id) bounds every valid id.  ``_stage``
-    "compact" stops after the pack and returns (the count of valid lanes,
-    the keys packed), "sort_pairs" after the sort and returns the passes.
-    """
+    (default: the largest valid id) bounds every valid id."""
     if valid is None:
         valid = a != b
     total = valid.sum(dtype=torch.int64)
@@ -72,13 +67,9 @@ def pair_sort_plain(a: torch.Tensor, b: torch.Tensor,
         id_bound = torch.maximum(a_v.max(), b_v.max()) if a_v.numel() else 0
     w = width_of(id_bound)
     keys = (a_v[:capacity] << w) | b_v[:capacity]
-    if _stage == "compact":
-        return total, torch.tensor(keys.shape[0], device=a.device)
     # flipping the sign bit orders the unsigned keys as int64
     keys = torch.sort(keys ^ _SIGN).values ^ _SIGN
     passes = plan_passes(keys, w)
-    if _stage == "sort_pairs":
-        return passes
     keep = torch.ones_like(keys, dtype=torch.bool)
     keep[1:] = keys[1:] != keys[:-1]
     kept = keys[keep]
@@ -94,21 +85,15 @@ def pair_sort_plain(a: torch.Tensor, b: torch.Tensor,
 
 def pair_sort(a: torch.Tensor, b: torch.Tensor,
               valid: Optional[torch.Tensor], capacity: int,
-              id_bound: Optional[torch.Tensor] = None,
-              _stage: str = "full_stream"):
+              id_bound: Optional[torch.Tensor] = None):
     """:func:`pair_sort_plain` on a CPU tensor; the chain on a CUDA tensor
     (int64 ``a``, ``b`` and bool ``valid``, or None, of one length;
-    ``id_bound`` a 0-dim int64 tensor or None).  Returns (out_a, out_b, count, total),
-    or ``_stage``'s reading as :func:`pair_sort_plain` says: read from the
-    chain's scratch, it adds no device operation.  Under
-    ``profiling.tracing()`` it counts ``scan.sort_passes``, and on the
-    card ``k8.launches``."""
-    if _stage not in STAGES:
-        raise ValueError(f"_stage must be one of {STAGES}, got {_stage!r}")
+    ``id_bound`` a 0-dim int64 tensor or None).  Returns (out_a, out_b,
+    count, total).  Under ``profiling.tracing()`` it counts
+    ``scan.sort_passes`` (read from the chain's scratch on the card: no
+    device operation), and on the card ``k8.launches``."""
     if a.device.type == "cpu":
-        out = pair_sort_plain(a, b, valid, capacity, id_bound, _stage)
-        if _stage != "full_stream":
-            return out
+        out = pair_sort_plain(a, b, valid, capacity, id_bound)
         profiling.count("scan.sort_passes", out[4])
         return out[:4]
     n = a.shape[0]
@@ -137,12 +122,8 @@ def pair_sort(a: torch.Tensor, b: torch.Tensor,
                           dtype=torch.int64, device=dev)
     _cuda.launch("bpt_pairsort", a, b, 0 if valid is None else valid,
                  0 if id_bound is None else id_bound, *keys, out_a, out_b,
-                 count, scratch, n, capacity, STAGES.index(_stage))
+                 count, scratch, n, capacity)
     profiling.count("k8.launches", 1)
-    total, live, passes = scratch[0], scratch[1], scratch[4]
-    if _stage == "compact":
-        return total, live
-    if _stage == "sort_pairs":
-        return passes
+    total, passes = scratch[0], scratch[4]
     profiling.count("scan.sort_passes", passes)
     return out_a, out_b, count, total

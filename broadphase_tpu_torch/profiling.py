@@ -12,23 +12,28 @@ PyTorch counterparts of ``broadphase_tpu/utils/profiling.py``:
   live before it.  It takes the place of JAX's
   ``compiled_memory_analysis``, which reads a compiler's buffer plan that
   eager execution does not have;
-* :func:`device_events` and :func:`device_time`: a call's device time
-  and device operations from the profiler's CUDA events, by name or in
-  all; :func:`device_readings`, their median over a fixed number of
-  windows; and :func:`pipelined_ms`, the host time of calls enqueued
-  back to back (the stage profilers' columns);
+* :func:`device_events`: a call's device time and device operations
+  from the profiler's CUDA events, by name; :func:`device_readings`,
+  their median over a fixed number of windows;
 * :func:`tracing`, :func:`span`, :func:`count` and :func:`counters`: the
-  port's own spans at the stages of ``layer.build``, ``layer.scan`` and
-  ``layer.merge`` and its counters (emissions, pairs, sort passes, merged
-  entries, kernel launches), off by default.
+  port's own spans at the stages of ``layer.build``, ``layer.scan``,
+  ``layer.merge`` and ``update.update`` and its counters (emissions,
+  pairs, sort passes, merged entries, kernel launches), off by default;
+* :func:`span_profile`: a call's host and device time in each of those
+  spans (the stage profilers' rows, ``tools/profile_step.py`` and
+  ``tools/profile_update.py``).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import json
 import os
+import tempfile
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from collections import defaultdict
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,9 +178,8 @@ def device_events(fn: Callable, reps: int = 5, tries: int = 6,
     events of one :func:`window_events` window.  The profiler now and then
     returns a window that lost device events.  A window with no device
     time, or with fewer operations per call than ``min_ops`` (the
-    caller's lower bound: what a shorter prefix of the same work showed),
-    is thrown away and profiled again, up to ``tries`` times in all; the
-    events are None if none passes."""
+    caller's lower bound), is thrown away and profiled again, up to
+    ``tries`` times in all; the events are None if none passes."""
     for dropped in range(tries):
         events = window_events(fn, reps, keep)
         ms, ops = window_totals(events)
@@ -197,33 +201,6 @@ def device_readings(fn: Callable, reps: int = 10, windows: int = 7,
             float(np.median([ops for _, ops in per_window])), per_window)
 
 
-def device_time(fn: Callable, reps: int = 5, min_ops: float = 0.0
-                ) -> Optional[Tuple[float, float]]:
-    """(ms, operations) per call of ``fn()`` on the card, summed over
-    :func:`device_events` (``min_ops`` as it says); None where no profiler
-    window passed."""
-    events, _ = device_events(fn, reps, min_ops=min_ops)
-    return None if events is None else window_totals(events)
-
-
-def pipelined_ms(fn: Callable, device, batches: int = 3, batch: int = 8
-                 ) -> float:
-    """Host ms per call of ``fn()``, the best of ``batches`` batches of
-    ``batch`` calls enqueued back to back and ended by one synchronize
-    (after one warm-up call): the stage profilers' host column, timed as
-    the JAX package's profilers time their prefixes."""
-    fn()
-    _sync(device)
-    best = float("inf")
-    for _ in range(batches):
-        t0 = time.perf_counter()
-        outs = [fn() for _ in range(batch)]
-        _sync(device)
-        best = min(best, (time.perf_counter() - t0) / batch * 1e3)
-        del outs
-    return best
-
-
 # ---------------------------------------------------------------------------
 # The port's spans and counters
 # ---------------------------------------------------------------------------
@@ -233,7 +210,9 @@ def pipelined_ms(fn: Callable, device, batches: int = 3, batch: int = 8
 SPANS = ("layer.build", "build.quantize", "build.emit", "build.sort",
          "layer.scan", "scan.nested", "scan.pass1", "scan.prep",
          "scan.expand", "scan.compact", "scan.canonical",
-         "layer.merge", "merge.cols", "merge.kernel", "merge.unpack")
+         "layer.merge", "merge.cols", "merge.kernel", "merge.unpack",
+         "layer.update", "update.diff", "update.extract", "update.churn",
+         "update.merge")
 # Every counter: the emission slots a scan fills (``prep_runs``' total),
 # the pairs it keeps and the radix passes of its canonical pair sort that
 # did work, the entries a merge leaves in its layer, the radix passes of
@@ -305,3 +284,132 @@ def counters() -> Dict[str, int]:
         for (name, _), v in zip(items, read):
             out[name] += v
     return out
+
+
+# ---------------------------------------------------------------------------
+# A call's time in each span
+# ---------------------------------------------------------------------------
+
+# Chrome trace categories: the device's operations, and the host's CUDA
+# calls that launch them (joined by their correlation ids)
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
+
+
+class SpanRow(NamedTuple):
+    """One span's readings per call; the device columns are None where
+    there is no card."""
+
+    name: str
+    calls: float                  # spans opened
+    host_ms: float                # host time with it the innermost span
+    device_ms: Optional[float]    # of the operations launched then
+    device_ops: Optional[float]   # kernels, copies and fills launched then
+
+
+class SpanProfile(NamedTuple):
+    """A call's :class:`SpanRow` s in :data:`SPANS` order (the spans it
+    opened), and the device ms and operations per call of the whole
+    window, spans or not (None where there is no card)."""
+
+    rows: List[SpanRow]
+    device_ms: Optional[float]
+    device_ops: Optional[float]
+
+
+def _innermost(spans) -> List[Tuple[float, Optional[str]]]:
+    """[(t, name)]: from each t on until the next, the innermost of the
+    nested (start, end, name) ``spans`` that is open (None: none is)."""
+    marks, stack = [], []
+
+    def close():
+        end, _ = stack.pop()
+        marks.append((end, stack[-1][1] if stack else None))
+
+    for start, end, name in sorted(spans, key=lambda x: (x[0], -x[1])):
+        while stack and stack[-1][0] <= start:
+            close()
+        stack.append((end, name))
+        marks.append((start, name))
+    while stack:
+        close()
+    return marks
+
+
+def span_rows(events: list, reps: int, on_device: bool) -> SpanProfile:
+    """The :class:`SpanProfile` of ``reps`` calls from a profiler window's
+    Chrome trace ``events``: a span's host time is the time it was the
+    innermost of :data:`SPANS` open (a layer's excludes its stages), and
+    each device operation goes to the innermost span open at its launch.
+    The window's padding kernels count nowhere."""
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") in SPANS]
+    calls = defaultdict(int)
+    for _, _, name in spans:
+        calls[name] += 1
+    marks = _innermost(spans)
+    at = [t for t, _ in marks]
+    host_us = defaultdict(float)
+    for (t, name), (t_next, _) in zip(marks, marks[1:]):
+        if name is not None:
+            host_us[name] += t_next - t
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in _RUNTIME_CATS
+              and "correlation" in e.get("args", {})}
+    dev_us, ops = defaultdict(float), defaultdict(int)
+    window_us, window_ops = 0.0, 0
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS or e.get("ph") != "X" \
+                or _PAD_KERNEL in e.get("name", ""):
+            continue
+        window_us += e["dur"]
+        window_ops += 1
+        t = launch.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            continue
+        i = bisect.bisect_right(at, t) - 1
+        name = marks[i][1] if i >= 0 else None
+        if name is not None:
+            dev_us[name] += e["dur"]
+            ops[name] += 1
+
+    def dev(x):
+        return x / reps if on_device else None
+
+    rows = [SpanRow(name, calls[name] / reps, host_us[name] / reps / 1e3,
+                    dev(dev_us[name] / 1e3), dev(ops[name]))
+            for name in SPANS if calls[name]]
+    return SpanProfile(rows, dev(window_us / 1e3), dev(window_ops))
+
+
+def span_profile(fn: Callable, reps: int = 5, device="cuda"
+                 ) -> SpanProfile:
+    """Run ``fn()`` once to warm up, then ``reps`` times under
+    :func:`tracing` in one ``torch.profiler`` window (padded on a card, as
+    :func:`window_events` pads), and read its :func:`span_rows`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    on_device = device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_device else [])
+    with tracing():
+        fn()
+        _sync(device)
+        with profile(activities=activities) as prof:
+            if on_device:
+                _pad()
+            for _ in range(reps):
+                fn()
+            if on_device:
+                _pad()
+            _sync(device)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return span_rows(events, reps, on_device)

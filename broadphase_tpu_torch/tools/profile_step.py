@@ -1,34 +1,34 @@
 """Per-stage profile of the full broadphase step (``layer.build`` +
 canonical ``layer.scan``) at the bench's scale.
 
-The counterpart of ``broadphase_tpu/tools/profile_step.py``: it times
-cumulative prefixes of the production step and reports each prefix's
-time and the deltas between them.  Each prefix runs the production step
-cut short by ``layer.scan_pairs``' ``_stage``, and the full prefix's
-pairs must equal ``layer.scan``'s.
+The counterpart of ``broadphase_tpu/tools/profile_step.py``.  It runs the
+production step itself under ``profiling.tracing()`` and reads the port's
+spans (:func:`profiling.span_profile`): a row a span the step opens, in
+``profiling.SPANS`` order.
 
 Run:  python -m broadphase_tpu_torch.tools.profile_step [n] [--device cpu]
 
-Stages (each a prefix that ends at it):
-  build       -- quantize, cell emission (k1) and the tree sort
-  run_ends    -- pass 1 of the scan (k2): run ends and both rule bytes
-  prep        -- run prefix sum and compaction of nonempty runs (k3)
-  gather      -- pair expansion with the emit-once rule (k4)
-  compact     -- emission compaction to the pair buffer (k8's pack; the
-                 step has none where the emission buffer is no wider)
-  sort_pairs  -- the canonical pair sort (k8's pack and radix passes)
-  full_stream -- + dedup and compaction (k8's finish): the production step
+Rows (a layer's row is its own time outside its stages):
+  layer.build     -- the build's own glue
+  build.quantize  -- the bounds quantized to the system box
+  build.emit      -- cell emission (k1)
+  build.sort      -- the tree sort (k9)
+  layer.scan      -- the scan's own glue
+  scan.pass1      -- run ends and both rule bytes (k2)
+  scan.prep       -- run prefix sum and compaction of nonempty runs (k3)
+  scan.expand     -- pair expansion with the emit-once rule (k4)
+  scan.canonical  -- the canonical pair sort, dedup and compaction (k8)
 
-Each prefix is timed on the host (the best of 3 batches of 8 calls, one
-synchronize a batch) and, on a CUDA device, by its device time and
-device operations (``torch.profiler``, 5 calls).
+Each row gives the spans opened, the host ms with the span innermost and,
+on a CUDA device, the device ms and operations launched then, per call
+over 5 calls in one ``torch.profiler`` window; the last line gives the
+window's device totals.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,40 +37,6 @@ from .. import bench_caps, layer, profiling
 from ..index import Index64_3D
 
 SPEC = Index64_3D
-STAGES = ("build",) + layer.SCAN_STAGES
-
-
-class StageTime(NamedTuple):
-    """A prefix's times, cumulative (the prefix that ends at the stage);
-    the device columns are None where there is no card."""
-
-    name: str
-    host_ms: float
-    device_ms: Optional[float]
-    device_ops: Optional[float]   # kernels, copies and fills per call
-
-
-def stage_time(name: str, fn: Callable, dev: torch.device,
-               min_ops: Optional[float] = None) -> StageTime:
-    """Host ms (:func:`profiling.pipelined_ms`) and, on a CUDA device,
-    device ms and operations (:func:`profiling.device_time`) of one
-    prefix, whose profiler window must show at least ``min_ops``
-    operations (the shorter prefix's count: a prefix runs all of it); the
-    device columns stay None where no window passed."""
-    host = profiling.pipelined_ms(fn, dev)
-    dt = (profiling.device_time(fn, min_ops=min_ops or 0.0)
-          if dev.type == "cuda" else None)
-    return StageTime(name, host, *(dt or (None, None)))
-
-
-def stage_times(names, prefixes, dev: torch.device) -> List[StageTime]:
-    """:func:`stage_time` of each prefix in order, each held to at least
-    the operations of the one before it."""
-    rows = []
-    for name, fn in zip(names, prefixes):
-        rows.append(stage_time(name, fn, dev,
-                               rows[-1].device_ops if rows else None))
-    return rows
 
 
 def caps(n: int):
@@ -81,82 +47,42 @@ def caps(n: int):
             max(bench_caps.emit_capacity(n), 1024))
 
 
-def make_prefixes(spec, scene_t, tree_cap: int, pair_cap: int,
-                  emit_cap: int) -> List[Callable]:
-    """The prefixes of :data:`STAGES`, in order: the build, then the build
-    and ``layer.scan_pairs`` cut at each of ``layer.SCAN_STAGES`` (its
-    ``_stage``), as ``layer.scan`` calls it.  Each returns small sums over
-    its last stage's output, except the last, which returns the step's
-    ``ScanResult``."""
-    smin, smax, bmin, bmax, ids = scene_t
-
-    def build():
-        return layer.build(spec, smin, smax, bmin, bmax, ids,
-                           out_capacity=tree_cap)
-
-    def p_build():
-        st = build()
-        return st.count, st.ids[::4096].sum()
-
-    def prefix(stage):
-        def run():
-            st = build()
-            return layer.scan_pairs(spec, st.keys, st.ids, st.count,
-                                    pair_cap, extra_overflow=st.overflow,
-                                    aux=st.aux, emit_capacity=emit_cap,
-                                    _stage=stage)
-        return run
-
-    return [p_build] + [prefix(s) for s in layer.SCAN_STAGES]
-
-
 def profile(n: int = 1_000_000, device="cuda", seed: int = 0
-            ) -> List[StageTime]:
-    """Time every prefix on the bench scene of n objects on ``device``,
-    after checking that the full prefix gives ``layer.scan``'s pairs,
-    count and overflow flag (raises ``RuntimeError`` if not)."""
+            ) -> profiling.SpanProfile:
+    """The spans of ``layer.build`` + canonical ``layer.scan`` on the bench
+    scene of n objects on ``device``."""
     dev = layer.resolve_device(device)
     scene = bench_caps.bench_scene(3, n, seed=seed)
-    smin, smax, bmin, bmax, ids = scene
-    scene_t = tuple(torch.as_tensor(x, device=dev) for x in (
-        smin, smax, bmin, bmax, ids.astype(np.int64)))
+    smin, smax, bmin, bmax, ids = (torch.as_tensor(x, device=dev) for x in (
+        *scene[:4], scene[4].astype(np.int64)))
     tree_cap, pair_cap, emit_cap = caps(n)
-    prefixes = make_prefixes(SPEC, scene_t, tree_cap, pair_cap, emit_cap)
 
-    got = prefixes[-1]()
-    _, want = layer.scan(SPEC, layer.build(SPEC, *scene_t,
-                                           out_capacity=tree_cap),
-                         pair_cap, emit_capacity=emit_cap)
-    if not (int(got.count) == int(want.count)
-            and bool(got.overflow) == bool(want.overflow)
-            and np.array_equal(layer.scan_result_to_numpy(got),
-                               layer.scan_result_to_numpy(want))):
-        raise RuntimeError("the full prefix differs from layer.scan")
+    def step():
+        st = layer.build(SPEC, smin, smax, bmin, bmax, ids,
+                         out_capacity=tree_cap)
+        return layer.scan(SPEC, st, pair_cap, emit_capacity=emit_cap)
 
-    return stage_times(STAGES, prefixes, dev)
+    return profiling.span_profile(step, device=dev)
 
 
-def stage_table(rows: List[StageTime]) -> str:
-    """The prefixes' cumulative host ms, device ms and device operations,
-    each with its delta from the prefix before; a column that was not
-    measured, and a delta from one, reads "not measured"."""
+def stage_table(prof: profiling.SpanProfile) -> str:
+    """The spans' calls, host ms, device ms and device operations a call
+    (a fraction where the profiler lost events), then the window's
+    device totals; a column that was not measured reads "not
+    measured"."""
     def num(x, fmt):
         return format(x, fmt) if x is not None else "not measured"
 
-    lines = [f"  {'stage':<11} {'host ms':>9} {'delta':>9}   "
-             f"{'device ms':>12} {'delta':>12}   {'device ops':>12} "
-             f"{'delta':>12}"]
-    prev = (0.0, 0.0, 0.0)
-    for r in rows:
-        cols = []
-        for x, p, fmt in zip((r.host_ms, r.device_ms, r.device_ops), prev,
-                             (".3f", ".3f", ".0f")):
-            cols += [num(x, fmt),
-                     num(None if x is None or p is None else x - p, fmt)]
-        lines.append(f"  {r.name:<11} {cols[0]:>9} {cols[1]:>9}   "
-                     f"{cols[2]:>12} {cols[3]:>12}   {cols[4]:>12} "
-                     f"{cols[5]:>12}")
-        prev = (r.host_ms, r.device_ms, r.device_ops)
+    lines = [f"  {'span':<15} {'calls':>5} {'host ms':>9}   "
+             f"{'device ms':>12} {'device ops':>12}"]
+    for r in prof.rows:
+        lines.append(f"  {r.name:<15} {r.calls:>5g} {r.host_ms:>9.3f}   "
+                     f"{num(r.device_ms, '.3f'):>12} "
+                     f"{num(r.device_ops, '.1f'):>12}")
+    host = sum(r.host_ms for r in prof.rows)
+    lines.append(f"  {'window':<15} {'':>5} {host:>9.3f}   "
+                 f"{num(prof.device_ms, '.3f'):>12} "
+                 f"{num(prof.device_ops, '.1f'):>12}")
     return "\n".join(lines)
 
 
@@ -169,9 +95,7 @@ def main(argv=None) -> int:
     tree_cap, pair_cap, emit_cap = caps(args.n)
     print(f"profiling the step n={args.n} tree_cap={tree_cap} "
           f"pair_cap={pair_cap} emit_cap={emit_cap} on {args.device}")
-    rows = profile(args.n, args.device)
-    print("the full prefix's pairs equal layer.scan's")
-    print(stage_table(rows))
+    print(stage_table(profile(args.n, args.device)))
     return 0
 
 

@@ -1,39 +1,42 @@
 """Per-stage profile of the temporal-coherence ``update`` at the bench's
 scale.
 
-The counterpart of ``broadphase_tpu/tools/profile_update.py``: it times
-the prefixes of ``update.update`` that its ``_stage`` argument cuts, on
-the bench's moving scene (``bench.py::bench_update_sweep``: the bench
-scene, then ``churn_frac`` of the objects moved by uniform(-5, 5) per
-axis, seed 3, and every object by 1e-4), beside a fresh ``layer.build``
-on the new bounds as the reference line.  The full prefix must equal the
-default ``update`` and the fresh build.
+The counterpart of ``broadphase_tpu/tools/profile_update.py``.  It runs
+``update.update`` itself under ``profiling.tracing()`` and reads the
+port's spans (:func:`profiling.span_profile`), on the bench's moving
+scene (``bench.py::bench_update_sweep``: the bench scene, then
+``churn_frac`` of the objects moved by uniform(-5, 5) per axis, seed 3,
+and every object by 1e-4), beside a fresh ``layer.build`` on the new
+bounds as the reference line.  The update must equal the fresh build.
 
 Run:  python -m broadphase_tpu_torch.tools.profile_update [n] [churn_frac]
           [--device cpu]
 
-Stages (``update.STAGES``, each a prefix that ends at it):
-  emit_diff -- signatures on the new bounds, the per-object diff, counts
-  extract   -- changed-object compaction (k5), emission of their old and
-               new rows, the churn streams
-  churn     -- churn compaction to the merge budget (k5), the churn sort
-  merge     -- merge, tombstone cancel and compaction in one kernel (k6)
-  full      -- + the new state: the production update
+Rows (a layer's row is its own time outside its stages):
+  layer.update    -- the update's own glue
+  update.diff     -- signatures on the new bounds, the per-object diff,
+                     counts
+  update.extract  -- changed-object compaction (k5), emission of their
+                     old and new rows, the churn streams
+  update.churn    -- churn compaction to the merge budget (k5), the churn
+                     sort
+  update.merge    -- merge, tombstone cancel and compaction in one kernel
+                     (k6), then the new state
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from .. import bench_caps, layer
+from .. import bench_caps, layer, profiling
 from ..index import Index64_3D
-from ..update import STAGES, build_tracked, update
-from .profile_step import StageTime, stage_table, stage_time, stage_times
+from ..update import build_tracked, update
+from .profile_step import stage_table
 
 SPEC = Index64_3D
 
@@ -61,11 +64,11 @@ def states_equal(a: layer.LayerState, b: layer.LayerState) -> bool:
 
 
 def profile(n: int = 1_000_000, frac: float = 0.03, device="cuda"
-            ) -> Tuple[List[StageTime], StageTime]:
-    """Time every prefix of :data:`update.STAGES` and the fresh build on
-    ``device``, after checking that the full prefix equals the default
-    update and the fresh build (raises ``RuntimeError`` if not).  Returns
-    (the stages, the build's line)."""
+            ) -> Tuple[profiling.SpanProfile, profiling.SpanRow]:
+    """The spans of ``update.update`` and the whole fresh build's line
+    (host ms over its spans, the window's device totals) on ``device``,
+    after checking that the update equals the fresh build (raises
+    ``RuntimeError`` if not)."""
     dev = layer.resolve_device(device)
     tree_cap = bench_caps.tree_capacity(n)
     churn_cap, obj_cap = bench_caps.update_caps(n, frac)
@@ -75,24 +78,21 @@ def profile(n: int = 1_000_000, frac: float = 0.03, device="cuda"
     tracked = build_tracked(SPEC, smin, smax, bmin, bmax, ids,
                             out_capacity=tree_cap)
 
-    def prefix(stage):
-        return lambda: update(SPEC, tracked, smin, smax, bmin2, bmax2,
-                              churn_cap, obj_cap=obj_cap, _stage=stage)
+    def step():
+        return update(SPEC, tracked, smin, smax, bmin2, bmax2, churn_cap,
+                      obj_cap=obj_cap)
 
     def fresh():
         return layer.build(SPEC, smin, smax, bmin2, bmax2, ids,
                            out_capacity=tree_cap)
 
-    full = prefix("full")().state
-    if not (states_equal(full, update(SPEC, tracked, smin, smax, bmin2,
-                                      bmax2, churn_cap,
-                                      obj_cap=obj_cap).state)
-            and states_equal(full, fresh())):
-        raise RuntimeError("the full prefix differs from update or from a "
-                           "fresh build")
-
-    return (stage_times(STAGES, [prefix(s) for s in STAGES], dev),
-            stage_time("build", fresh, dev))
+    if not states_equal(step().state, fresh()):
+        raise RuntimeError("the update differs from a fresh build")
+    built = profiling.span_profile(fresh, device=dev)
+    return (profiling.span_profile(step, device=dev),
+            profiling.SpanRow("layer.build", 1.0,
+                              sum(r.host_ms for r in built.rows),
+                              built.device_ms, built.device_ops))
 
 
 def main(argv=None) -> int:
@@ -106,9 +106,9 @@ def main(argv=None) -> int:
     print(f"profiling update n={args.n} churn={args.churn_frac:.1%} "
           f"churn_cap={churn_cap} obj_cap={obj_cap} "
           f"tree_cap={bench_caps.tree_capacity(args.n)} on {args.device}")
-    rows, build = profile(args.n, args.churn_frac, args.device)
-    print("the full prefix equals update and a fresh build")
-    print(stage_table(rows))
+    prof, build = profile(args.n, args.churn_frac, args.device)
+    print("the update equals a fresh build")
+    print(stage_table(prof))
     dev = ("not measured" if build.device_ms is None else
            f"{build.device_ms:.3f} ms, {build.device_ops:.0f} operations")
     print(f"  fresh build (reference): host {build.host_ms:.3f} ms, "

@@ -42,7 +42,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import geom
+from . import geom, profiling
 from .index import IndexSpec, PAD_KEY, U32_MASK, origin_of
 from .layer import (PAD_ID, LayerState, _build, _host, _merge_cols,
                     _pack_meta, _unpack_meta, capacity_of, mask_aux,
@@ -188,107 +188,100 @@ class _Churn(NamedTuple):
     overflow: torch.Tensor       # () bool: cell, churn, obj or id overflow
 
 
-# the prefixes of update() that ``tools/profile_update.py`` times, in order
-STAGES = ("emit_diff", "extract", "churn", "merge", "full")
-
-
 def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
                  system_max, bmin_f, bmax_f, churn_cap: int,
-                 slots_per_axis: int, obj_cap: int, wide_ids: bool,
-                 _stage: str = "full"):
+                 slots_per_axis: int, obj_cap: int, wide_ids: bool
+                 ) -> _Churn:
     """Signature diff, object-granular extraction and the sorted churn
-    buffer (tombstones and inserts) of one frame: a :class:`_Churn`, or
-    for the profiler prefixes ``_stage`` "emit_diff", "extract" and
-    "churn" a tuple of small reductions at that cut (:func:`update`)."""
+    buffer (tombstones and inserts) of one frame, in the spans
+    ``update.diff``, ``update.extract`` and ``update.churn``."""
     C, OC = churn_cap, obj_cap
     n = tracked.ids.shape[0]
     dev = tracked.ids.device
     min_depth = int(tracked.state.min_depth)
-    depth_n, tmin_n, tmax_n, cont_n = _signature(
-        spec, system_min, system_max, bmin_f, bmax_f, min_depth)
+    with profiling.span("update.diff"):
+        depth_n, tmin_n, tmax_n, cont_n = _signature(
+            spec, system_min, system_max, bmin_f, bmax_f, min_depth)
 
-    # equal signatures emit equal cells: drift within cells is no churn;
-    # objects outside the system on both frames emit nothing either way
-    changed = ((depth_n != tracked.sig_depth)
-               | (cont_n != tracked.sig_contained)
-               | torch.any((tmin_n != tracked.sig_tmin)
-                           | (tmax_n != tracked.sig_tmax), dim=-1)) \
-        & (cont_n | tracked.sig_contained)
+        # equal signatures emit equal cells: drift within cells is no
+        # churn; objects outside the system on both frames emit nothing
+        # either way
+        changed = ((depth_n != tracked.sig_depth)
+                   | (cont_n != tracked.sig_contained)
+                   | torch.any((tmin_n != tracked.sig_tmin)
+                               | (tmax_n != tracked.sig_tmax), dim=-1)) \
+            & (cont_n | tracked.sig_contained)
 
-    old_cnt, _ = _sig_slot_count(tracked.sig_depth, tracked.sig_tmin,
-                                 tracked.sig_tmax, tracked.sig_contained,
-                                 slots_per_axis)
-    new_cnt, new_ovf = _sig_slot_count(depth_n, tmin_n, tmax_n, cont_n,
-                                       slots_per_axis)
-    cell_ovf = torch.any(new_ovf)
-    tomb_cnt = torch.where(changed, old_cnt, 0).sum()
-    ins_cnt = torch.where(changed, new_cnt, 0).sum()
-    obj_cnt = changed.sum(dtype=torch.int64)
-    churn_ovf = (tomb_cnt > C) | (ins_cnt > C) | (obj_cnt > OC)
-    if _stage == "emit_diff":
-        return tomb_cnt, ins_cnt, obj_cnt, cell_ovf
+        old_cnt, _ = _sig_slot_count(tracked.sig_depth, tracked.sig_tmin,
+                                     tracked.sig_tmax, tracked.sig_contained,
+                                     slots_per_axis)
+        new_cnt, new_ovf = _sig_slot_count(depth_n, tmin_n, tmax_n, cont_n,
+                                           slots_per_axis)
+        cell_ovf = torch.any(new_ovf)
+        tomb_cnt = torch.where(changed, old_cnt, 0).sum()
+        ins_cnt = torch.where(changed, new_cnt, 0).sum()
+        obj_cnt = changed.sum(dtype=torch.int64)
+        churn_ovf = (tomb_cnt > C) | (ins_cnt > C) | (obj_cnt > OC)
 
-    # the changed objects' indices (one 1-column compaction over the n
-    # object lanes), then emission of only their old and new rows
-    (obj_idx,), _ = stream_compact(
-        changed, (torch.arange(n, dtype=torch.int64, device=dev),), (n,))
-    if n >= OC:
-        obj_idx = obj_idx[:OC]
-    else:
-        obj_idx = torch.cat([obj_idx, obj_idx.new_full((OC - n,), n)])
-    row_live = torch.arange(OC, device=dev) < obj_cnt.clamp(max=OC)
-    obj_idx = obj_idx.clamp(0, max(n - 1, 0))
+    with profiling.span("update.extract"):
+        # the changed objects' indices (one 1-column compaction over the n
+        # object lanes), then emission of only their old and new rows
+        (obj_idx,), _ = stream_compact(
+            changed, (torch.arange(n, dtype=torch.int64, device=dev),), (n,))
+        if n >= OC:
+            obj_idx = obj_idx[:OC]
+        else:
+            obj_idx = torch.cat([obj_idx, obj_idx.new_full((OC - n,), n)])
+        row_live = torch.arange(OC, device=dev) < obj_cnt.clamp(max=OC)
+        obj_idx = obj_idx.clamp(0, max(n - 1, 0))
 
-    def rows(x):
-        return x[obj_idx] if n else x.new_zeros((OC,) + x.shape[1:])
+        def rows(x):
+            return x[obj_idx] if n else x.new_zeros((OC,) + x.shape[1:])
 
-    old_keys, old_v = _emit_rows(spec, system_min, system_max,
-                                 rows(tracked.bounds_min),
-                                 rows(tracked.bounds_max), min_depth,
-                                 slots_per_axis)
-    new_keys, new_v = _emit_rows(spec, system_min, system_max, rows(bmin_f),
-                                 rows(bmax_f), min_depth, slots_per_axis)
-    ids_rows = rows(tracked.ids)
-    aux_row = geom.slot_aux(spec.dim, slots_per_axis, dev)
-    if n:
-        max_id = torch.where(tracked.ids != PAD_ID, tracked.ids, 0).max()
-        narrow = max_id < _PACK_ID_BOUND
-    else:
-        narrow = torch.ones((), dtype=torch.bool, device=dev)
-    pack_ovf = torch.zeros((), dtype=torch.bool, device=dev) if wide_ids \
-        else ~narrow
+        old_keys, old_v = _emit_rows(spec, system_min, system_max,
+                                     rows(tracked.bounds_min),
+                                     rows(tracked.bounds_max), min_depth,
+                                     slots_per_axis)
+        new_keys, new_v = _emit_rows(spec, system_min, system_max,
+                                     rows(bmin_f), rows(bmax_f), min_depth,
+                                     slots_per_axis)
+        ids_rows = rows(tracked.ids)
+        aux_row = geom.slot_aux(spec.dim, slots_per_axis, dev)
+        if n:
+            max_id = torch.where(tracked.ids != PAD_ID, tracked.ids, 0).max()
+            narrow = max_id < _PACK_ID_BOUND
+        else:
+            narrow = torch.ones((), dtype=torch.bool, device=dev)
+        pack_ovf = torch.zeros((), dtype=torch.bool, device=dev) \
+            if wide_ids else ~narrow
 
-    t_key, t_meta, t_keep = _churn_stream(
-        spec, ids_rows, aux_row, old_keys, old_v & row_live[:, None],
-        1)                                                   # tombstones
-    i_key, i_meta, i_keep = _churn_stream(
-        spec, ids_rows, aux_row, new_keys, new_v & row_live[:, None],
-        0)                                                   # inserts
-    if _stage == "extract":
-        return (tomb_cnt, t_key[::64].sum(), i_key[::64].sum(),
-                t_keep.sum(), i_keep.sum())
+        t_key, t_meta, t_keep = _churn_stream(
+            spec, ids_rows, aux_row, old_keys, old_v & row_live[:, None],
+            1)                                               # tombstones
+        i_key, i_meta, i_keep = _churn_stream(
+            spec, ids_rows, aux_row, new_keys, new_v & row_live[:, None],
+            0)                                               # inserts
 
-    # compact the 2*OC*S churn lanes to the 2C merge budget, then order the
-    # buffer by (key, meta): meta's (id, aux, tag) lands each tombstone
-    # directly after the tree entry it cancels
-    (c_key, c_meta), c_cnt = stream_compact(
-        torch.cat([t_keep, i_keep]), (torch.cat([t_key, i_key]),
-                                      torch.cat([t_meta, i_meta])),
-        (PAD_KEY, PAD_KEY))
-    c_key, c_meta = to_length(c_key, 2 * C), to_length(c_meta, 2 * C)
-    order = torch.sort(c_meta, stable=True).indices
-    order = order[torch.sort(c_key[order], stable=True).indices]
-    if _stage == "churn":
-        return c_key[order][::64].sum(), c_meta[order][::64].sum()
-    return _Churn((depth_n, tmin_n, tmax_n, cont_n), c_key[order],
-                  c_meta[order], c_cnt.clamp(max=2 * C),
-                  cell_ovf | churn_ovf | pack_ovf)
+    with profiling.span("update.churn"):
+        # compact the 2*OC*S churn lanes to the 2C merge budget, then order
+        # the buffer by (key, meta): meta's (id, aux, tag) lands each
+        # tombstone directly after the tree entry it cancels
+        (c_key, c_meta), c_cnt = stream_compact(
+            torch.cat([t_keep, i_keep]), (torch.cat([t_key, i_key]),
+                                          torch.cat([t_meta, i_meta])),
+            (PAD_KEY, PAD_KEY))
+        c_key, c_meta = to_length(c_key, 2 * C), to_length(c_meta, 2 * C)
+        order = torch.sort(c_meta, stable=True).indices
+        order = order[torch.sort(c_key[order], stable=True).indices]
+        return _Churn((depth_n, tmin_n, tmax_n, cont_n), c_key[order],
+                      c_meta[order], c_cnt.clamp(max=2 * C),
+                      cell_ovf | churn_ovf | pack_ovf)
 
 
 def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
            bounds_min, bounds_max, churn_cap: int, slots_per_axis: int = 2,
-           obj_cap: Optional[int] = None, wide_ids: bool = False,
-           _stage: str = "full") -> TrackedScene:
+           obj_cap: Optional[int] = None, wide_ids: bool = False
+           ) -> TrackedScene:
     """Advance the tree to this frame's bounds by signature diff and
     tombstone merge.
 
@@ -299,49 +292,44 @@ def update(spec: IndexSpec, tracked: TrackedScene, system_min, system_max,
     whose state equals ``layer.build`` on the new bounds (unique-id
     scenes), or has ``overflow`` set.
 
-    ``_stage`` (``tools/profile_update.py``) cuts the update short after a
-    prefix of :data:`STAGES` and returns small reductions there, so that
-    nothing of the prefix is skipped: "emit_diff" the churn counts
-    ``(tomb_cnt, ins_cnt, obj_cnt, cell_ovf)`` as the JAX package returns
-    them; "extract", "churn" and "merge" sums over the churn streams, the
-    sorted churn buffer and the merged columns.  The merge kernel (k6)
-    also cancels and compacts, so "merge" is nearly "full".
+    Under ``profiling.tracing()`` the update opens ``layer.update`` with
+    its stages: ``update.diff`` (signatures, diff, counts),
+    ``update.extract`` (the changed objects' rows and churn streams),
+    ``update.churn`` (compaction to the merge budget and the sort) and
+    ``update.merge`` (k6 and the new state).
     """
-    if _stage not in STAGES:
-        raise ValueError(f"_stage must be one of {STAGES}, got {_stage!r}")
-    state = tracked.state
-    cap = capacity_of(state)
-    dev = tracked.ids.device
-    bmin_f, bmax_f = _f32(bounds_min, dev), _f32(bounds_max, dev)
-    churn = _frame_churn(spec, tracked, system_min, system_max, bmin_f,
-                         bmax_f, churn_cap, slots_per_axis,
-                         obj_cap if obj_cap is not None else churn_cap,
-                         wide_ids, _stage)
-    if _stage in STAGES[:3]:
-        return churn
+    with profiling.span("layer.update"):
+        state = tracked.state
+        cap = capacity_of(state)
+        dev = tracked.ids.device
+        bmin_f, bmax_f = _f32(bounds_min, dev), _f32(bounds_max, dev)
+        churn = _frame_churn(spec, tracked, system_min, system_max, bmin_f,
+                             bmax_f, churn_cap, slots_per_axis,
+                             obj_cap if obj_cap is not None else churn_cap,
+                             wide_ids)
 
-    # merge, cancel and compact in one kernel; it has no churn window, so
-    # the JAX package's choice between its kernel and a global merge
-    # (broadphase_tpu/update.py:215-241) has no counterpart here
-    tree_key, tree_meta = _tree_merge_cols(spec, tracked)
-    (out_key, out_meta), new_count, merge_ovf = merge_cancel_compact(
-        tree_key, tree_meta, churn.key, churn.meta, churn.count, cap)
-    if _stage == "merge":
-        return out_key[::4096].sum(), out_meta[::4096].sum()
-    o_ids, o_aux = _unpack_meta(spec, out_meta, cap, new_count)
+        with profiling.span("update.merge"):
+            # merge, cancel and compact in one kernel; it has no churn
+            # window, so the JAX package's choice between its kernel and a
+            # global merge (broadphase_tpu/update.py:215-241) has no
+            # counterpart here
+            tree_key, tree_meta = _tree_merge_cols(spec, tracked)
+            (out_key, out_meta), new_count, merge_ovf = merge_cancel_compact(
+                tree_key, tree_meta, churn.key, churn.meta, churn.count, cap)
+            o_ids, o_aux = _unpack_meta(spec, out_meta, cap, new_count)
 
-    contained = churn.signature[3]
-    new_state = state._replace(
-        keys=out_key,
-        ids=o_ids,
-        # without wide_ids every live id is below 2^28 - 1 (else overflow
-        # is set), where build masks nothing
-        aux=mask_aux(o_ids, o_aux) if wide_ids else o_aux,
-        count=new_count.clamp(max=cap),
-        sorted=_host(True, torch.bool),
-        invalid_count=(~contained).sum(dtype=torch.int64),
-        overflow=(state.overflow | churn.overflow | merge_ovf
-                  | (new_count > cap)),
-    )
-    return TrackedScene(new_state, tracked.ids, bmin_f, bmax_f,
-                        *churn.signature, o_aux)
+            contained = churn.signature[3]
+            new_state = state._replace(
+                keys=out_key,
+                ids=o_ids,
+                # without wide_ids every live id is below 2^28 - 1 (else
+                # overflow is set), where build masks nothing
+                aux=mask_aux(o_ids, o_aux) if wide_ids else o_aux,
+                count=new_count.clamp(max=cap),
+                sorted=_host(True, torch.bool),
+                invalid_count=(~contained).sum(dtype=torch.int64),
+                overflow=(state.overflow | churn.overflow | merge_ovf
+                          | (new_count > cap)),
+            )
+            return TrackedScene(new_state, tracked.ids, bmin_f, bmax_f,
+                                *churn.signature, o_aux)

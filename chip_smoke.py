@@ -554,9 +554,8 @@ def adversarial(dev):
 
 def compare_pair_sort(a, b, valid, cap, bound=None) -> float:
     """Kernel 8 against its plain version: (a, b, count, total) and the
-    passes counter, exact, and both ``_stage`` cuts' sums.  Run it with
-    no launch count open: it drains the port's counters.  Returns
-    max_abs_err."""
+    passes counter, exact.  Run it with no launch count open: it drains
+    the port's counters.  Returns max_abs_err."""
     with profiling.tracing():
         profiling.counters()
         got = pair_sort(a, b, valid, cap, bound)
@@ -565,11 +564,6 @@ def compare_pair_sort(a, b, valid, cap, bound=None) -> float:
     err = max_abs_err(got, want[:4])
     check(passes == int(want[4]), f"pair_sort: {passes} passes, the plain "
           f"version plans {int(want[4])}")
-    for stage in ("compact", "sort_pairs"):
-        cut = pair_sort(a, b, valid, cap, bound, stage)
-        plain = pair_sort_plain(a, b, valid, cap, bound, stage)
-        max_abs_err(*((x,) if torch.is_tensor(x) else x
-                      for x in (cut, plain)))
     return err
 
 
@@ -668,12 +662,11 @@ def pair_sort_checked(shapes: list):
     call's (input lanes, output lanes)."""
     real = layer.pair_sort
 
-    def checked(a, b, valid, capacity, id_bound=None, _stage="full_stream"):
-        got = real(a, b, valid, capacity, id_bound, _stage)
-        if _stage == "full_stream":
-            max_abs_err(got, pair_sort_plain(a, b, valid, capacity,
-                                             id_bound)[:4])
-            shapes.append((a.shape[0], capacity))
+    def checked(a, b, valid, capacity, id_bound=None):
+        got = real(a, b, valid, capacity, id_bound)
+        max_abs_err(got, pair_sort_plain(a, b, valid, capacity,
+                                         id_bound)[:4])
+        shapes.append((a.shape[0], capacity))
         return got
 
     layer.pair_sort = checked
@@ -2871,46 +2864,54 @@ def ms_text(x) -> str:
 
 
 def profiler_phase(dev, step_p50, update_p50s, n=1_000_000):
-    """The step profiler at 1M and the update profiler at 1M, 1% and 3%
-    (each checks that its full prefix equals the production path); the
-    stage tables.  Returns (the launches of one full prefix of each, the
-    full prefixes' times)."""
+    """The step profiler at 1M and the update profiler at 1M, 1% and 3%:
+    every stage span shows device time, and the rows' operations, the
+    layers' own included, add up to the window's; the stage tables.
+    Returns (the launches of one step and one 3% update, each profile's
+    host ms over its spans and device ms)."""
     routes, summary = {}, {}
 
-    def measured(label, rows):
-        check(all(r.device_ms is not None and r.device_ms > 0
-                  and r.device_ops > 0 for r in rows),
+    def measured(label, prof):
+        stages = [r for r in prof.rows if not r.name.startswith("layer.")]
+        check(stages and all(r.device_ms is not None and r.device_ms > 0
+                             and r.device_ops > 0 for r in stages),
               f"{label}: the profiler shows no device time for "
-              + ", ".join(r.name for r in rows if not r.device_ms))
+              + ", ".join(r.name for r in stages if not r.device_ms))
+        ops = sum(r.device_ops for r in prof.rows)
+        check(prof.device_ops is not None
+              and abs(ops - prof.device_ops) < 1e-9,
+              f"{label}: the spans' {ops:g} operations a call are not the "
+              f"window's {prof.device_ops}")
+        return sum(r.host_ms for r in prof.rows)
 
-    rows = profile_step.profile(n, dev)
-    measured(f"profile_step {n}", rows)
-    full = rows[-1]
-    print(f"profile_step {n} (the full prefix's pairs equal layer.scan's): "
-          f"full prefix host {full.host_ms:.3f} ms (best of 3 x 8, "
-          f"pipelined), device {ms_text(full.device_ms)}; phase 5's p50 "
-          f"{step_p50:.3f} ms (one synchronize a step)\n"
-          + profile_step.stage_table(rows))
-    summary["step_full_host"], summary["step_full_device"] = \
-        full.host_ms, full.device_ms
+    prof = profile_step.profile(n, dev)
+    host = measured(f"profile_step {n}", prof)
+    print(f"profile_step {n} (layer.build + layer.scan, 5 calls in one "
+          f"profiler window): host {host:.3f} ms over the spans, device "
+          f"{ms_text(prof.device_ms)} in {prof.device_ops:g} operations; "
+          f"phase 5's p50 {step_p50:.3f} ms (one synchronize a step)\n"
+          + profile_step.stage_table(prof))
+    summary["step_host"], summary["step_device"] = host, prof.device_ms
     scene_t = to_device(bench_caps.bench_scene(3, n), dev)
-    prefixes = profile_step.make_prefixes(SPEC, scene_t,
-                                          *profile_step.caps(n))
     reset_launches()
-    prefixes[-1]()
+    step(scene_t, *profile_step.caps(n), True)
     routes["profile_step"] = read_launches()
     for frac in (0.01, 0.03):
-        rows, build = profile_update.profile(n, frac, dev)
-        measured(f"profile_update {n} churn {frac:.0%}", rows + [build])
-        full = rows[-1]
-        print(f"profile_update {n} churn {frac:.0%} (the full prefix equals "
-              f"update and a fresh build): full host {full.host_ms:.3f} ms, "
-              f"device {ms_text(full.device_ms)}; fresh build host "
-              f"{build.host_ms:.3f} ms, device {ms_text(build.device_ms)}; "
-              f"phase 7's update p50 {update_p50s[frac]:.3f} ms\n"
-              + profile_step.stage_table(rows))
-        summary[f"update_{frac:.2f}_full_host"] = full.host_ms
-        summary[f"update_{frac:.2f}_full_device"] = full.device_ms
+        prof, build = profile_update.profile(n, frac, dev)
+        label = f"profile_update {n} churn {frac:.0%}"
+        host = measured(label, prof)
+        check(build.device_ms is not None and build.device_ms > 0,
+              f"{label}: the profiler shows no device time for the build")
+        print(f"{label} (update.update, 5 calls in one profiler window; "
+              f"the update equals a fresh build): host {host:.3f} ms over "
+              f"the spans, device {ms_text(prof.device_ms)} in "
+              f"{prof.device_ops:g} operations; fresh build host "
+              f"{build.host_ms:.3f} ms, device {ms_text(build.device_ms)} "
+              f"in {build.device_ops:g} operations; phase 7's update p50 "
+              f"{update_p50s[frac]:.3f} ms\n"
+              + profile_step.stage_table(prof))
+        summary[f"update_{frac:.2f}_host"] = host
+        summary[f"update_{frac:.2f}_device"] = prof.device_ms
     smin, smax, bmin, bmax, ids, bmin2, bmax2 = (
         torch.as_tensor(x, device=dev)
         for x in profile_update.moving_scene(n, 0.03))
@@ -2920,7 +2921,7 @@ def profiler_phase(dev, step_p50, update_p50s, n=1_000_000):
                                 out_capacity=bench_caps.tree_capacity(n))
     reset_launches()
     upd.update(SPEC, tracked, smin, smax, bmin2, bmax2, churn_cap,
-               obj_cap=obj_cap, _stage="full")
+               obj_cap=obj_cap)
     routes["profile_update"] = read_launches()
     return routes, summary
 

@@ -5,7 +5,7 @@ the card) against the pair sort the port ran before it (``torch.sort`` of
 ``((a - 2^31) << 32) + b`` and the dedup by kernel 5's plain version) and
 against ``broadphase_tpu.layer.canonical_pairs``; exact.  Also the
 emission compaction folded into the chain at and around the pair
-capacity, the ``_stage`` cuts, the passes counter and the dispatch.
+capacity, the passes counter and the dispatch.
 """
 
 import numpy as np
@@ -135,27 +135,6 @@ def test_folded_compaction_keeps_the_same_prefix_and_overflow(kept):
     assert got.pairs_a.shape == (pair_cap,)
 
 
-@pytest.mark.parametrize("stage", ["compact", "sort_pairs"])
-def test_stage_cuts_read_the_pack_and_the_plan(stage):
-    """``_stage`` "compact" stops after the pack (valid lanes, keys packed
-    into the pair buffer), "sort_pairs" after the sort (its passes)."""
-    rng = np.random.default_rng(2)
-    n, cap = 20000, 12000
-    a, b = (torch.as_tensor(_ids(rng, 2 ** 20 - 1, n)) for _ in range(2))
-    valid = torch.as_tensor(rng.random(n) < 0.7)
-    bound = torch.tensor(2 ** 20 - 1)
-    got = layer._finish_pairs(a, b, valid, cap, n, None, None, True, stage,
-                              bound)
-    if stage == "compact":
-        assert tuple(map(int, got)) == (int(valid.sum()), cap)
-        assert int(valid.sum()) > cap
-    else:
-        assert got.dim() == 0 and int(got) == 5
-        assert int(layer.canonical_pairs(a, b, valid, stage)) == 5
-        assert int(pairsort.pair_sort(a, b, valid, n, torch.tensor(
-            2 ** 31 + 1), stage)) == 6
-
-
 @pytest.mark.parametrize("case,top,passes", [
     ("zero", 0, 0), ("one", 1, 1), ("byte", 2 ** 8 - 1, 2),
     ("1M_ids", 2 ** 20 - 1, 5), ("2^24", 2 ** 24, 7), ("u32", 2 ** 32 - 2, 8),
@@ -211,5 +190,3 @@ def test_pair_sort_dispatches_on_device():
         with pytest.raises(ValueError, match="CUDA"):
             pairsort.pair_sort(z, z, z != 0, 8)
         assert profiling.counters() == {}
-    with pytest.raises(ValueError, match="_stage"):
-        pairsort.pair_sort(z, z, z != 0, 8, _stage="gather")

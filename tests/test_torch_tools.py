@@ -6,11 +6,9 @@ package's on the CPU.
   the scene file, the golden trio and ``show``'s stdout and ``--html``
   file, byte for byte; ``--png`` writes a file.
 * The port's ``extend`` order equals the C++ oracle's append order.
-* ``update(..., _stage="emit_diff")`` equals JAX's exactly; every stage
-  runs, and ``"full"`` equals the default update; likewise every cut of
-  ``layer.scan_pairs``' ``_stage``.
-* The step and update profilers at n = 2,000 (their full prefixes equal
-  ``layer.scan`` and ``update``); the profiling utilities on the CPU.
+* The step and update profilers at n = 2,000 (a row a span the call
+  opens); the span reader on a hand-made trace; the profiling utilities
+  on the CPU.
 * The scan visualizer's roles equal JAX's ``sweep_states``.
 """
 
@@ -25,16 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from broadphase_tpu import update as jup
 from broadphase_tpu.utils import native, oracle
 from broadphase_tpu_torch import gen, layer, profiling
-from broadphase_tpu_torch import update as tup
 from broadphase_tpu_torch.examples import scan_visualizer
 from broadphase_tpu_torch.index import Index64_3D
 from broadphase_tpu_torch.tools import __main__ as cli
 from broadphase_tpu_torch.tools import profile_step, profile_update
-
-from test_torch_update import _Pair
 
 REPO = Path(__file__).resolve().parent.parent
 TRIO = ("0_layer_unsorted", "1_layer_sorted", "2_layer_collisions")
@@ -127,86 +121,107 @@ def test_extend_order_equals_the_native_oracle(outside):
     assert int(st.invalid_count) == invalid == outside
 
 
-@pytest.mark.parametrize("name", ["Index64_3D", "Index32_2D"])
-def test_update_stages(name):
-    p = _Pair(name, 300, seed=61)
-    p.move(0.2, 2.0)
-    args = (p.smin, p.smax, p.bmin, p.bmax)
-    want = jup.update(p.spec, p.jt, *args, 8 * 300, _stage="emit_diff")
-    got = tup.update(p.tspec, p.tt, *args, 8 * 300, _stage="emit_diff")
-    assert [int(g) for g in got] == [int(w) for w in want]
-    assert int(got[2]) > 0                     # objects did change cells
-    for stage in tup.STAGES[1:4]:
-        out = tup.update(p.tspec, p.tt, *args, 8 * 300, _stage=stage)
-        assert all(torch.is_tensor(x) and x.dim() == 0 for x in out), stage
-    full = tup.update(p.tspec, p.tt, *args, 8 * 300, _stage="full")
-    default = tup.update(p.tspec, p.tt, *args, 8 * 300)
-    assert profile_update.states_equal(full.state, default.state)
-    with pytest.raises(ValueError):
-        tup.update(p.tspec, p.tt, *args, 8 * 300, _stage="sort")
-
-
-@pytest.mark.parametrize("emit_wider", [True, False])
-def test_scan_stages(emit_wider):
-    """Every cut of ``scan_pairs`` runs and returns scalars; "full_stream"
-    is the default scan; "compact" adds nothing to "gather" where the
-    step skips the emission compaction."""
-    sc = gen.gen_boxes(count=2000, density=0.001)
-    st = layer.build(Index64_3D, sc.system_min, sc.system_max,
-                     sc.bounds_min, sc.bounds_max, sc.ids.astype(np.int64),
-                     device="cpu")
-    pair_cap = 8 * 2000
-    emit_cap = 2 * pair_cap if emit_wider else pair_cap
-
-    def cut(stage):
-        return layer.scan_pairs(Index64_3D, st.keys, st.ids, st.count,
-                                pair_cap, extra_overflow=st.overflow,
-                                aux=st.aux, emit_capacity=emit_cap,
-                                _stage=stage)
-
-    sums = {s: cut(s) for s in layer.SCAN_STAGES[:-1]}
-    for stage, out in sums.items():
-        out = out if isinstance(out, tuple) else (out,)
-        assert all(torch.is_tensor(x) and x.dim() == 0 for x in out), stage
-    assert int(sums["prep"][0]) > 0
-    assert (tuple(int(x) for x in sums["compact"])
-            == tuple(int(x) for x in sums["gather"])) != emit_wider
-    full = cut("full_stream")
-    _, want = layer.scan(Index64_3D, st, pair_cap, emit_capacity=emit_cap)
-    assert int(full.count) == int(want.count) > 0
-    np.testing.assert_array_equal(layer.scan_result_to_numpy(full),
-                                  layer.scan_result_to_numpy(want))
-    with pytest.raises(ValueError):
-        cut("build")
-
-
 def test_stage_table_reads_not_measured():
-    rows = [profile_step.StageTime("build", 2.0, 1.0, 10.0),
-            profile_step.StageTime("run_ends", 3.0, None, None),
-            profile_step.StageTime("prep", 4.0, 2.5, 14.0)]
-    lines = profile_step.stage_table(rows).splitlines()
-    assert lines[2].split()[1:3] == ["3.000", "1.000"]
-    assert lines[2].count("not measured") == 4
-    assert lines[3].split()[1:4] == ["4.000", "1.000", "2.500"]
-    assert lines[3].count("not measured") == 2
+    prof = profiling.SpanProfile(
+        [profiling.SpanRow("layer.build", 1.0, 2.0, 1.0, 10.0),
+         profiling.SpanRow("build.emit", 1.0, 3.0, None, None),
+         profiling.SpanRow("build.sort", 0.5, 4.0, 2.5, 14.0)],
+        None, None)
+    lines = profile_step.stage_table(prof).splitlines()
+    assert lines[1].split() == ["layer.build", "1", "2.000", "1.000",
+                                "10.0"]
+    assert lines[2].split()[:3] == ["build.emit", "1", "3.000"]
+    assert lines[2].count("not measured") == 2
+    assert lines[3].split() == ["build.sort", "0.5", "4.000", "2.500",
+                                "14.0"]
+    assert lines[4].split()[:2] == ["window", "9.000"]
+    assert lines[4].count("not measured") == 2
 
 
 def test_profile_step_on_the_cpu(capsys):
-    rows = profile_step.profile(2000, "cpu")
-    assert [r.name for r in rows] == list(profile_step.STAGES)
-    assert all(r.host_ms > 0 and r.device_ms is None for r in rows)
+    prof = profile_step.profile(2000, "cpu")
+    assert [r.name for r in prof.rows] == [
+        "layer.build", "build.quantize", "build.emit", "build.sort",
+        "layer.scan", "scan.pass1", "scan.prep", "scan.expand",
+        "scan.canonical"]
+    assert all(r.calls == 1 and r.host_ms > 0 and r.device_ms is None
+               and r.device_ops is None for r in prof.rows)
+    assert prof.device_ms is None and prof.device_ops is None
     profile_step.main(["2000", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "equal layer.scan's" in out and "full_stream" in out
+    assert "scan.canonical" in out and "window" in out
 
 
 def test_profile_update_on_the_cpu(capsys):
-    rows, build = profile_update.profile(2000, 0.03, "cpu")
-    assert [r.name for r in rows] == list(tup.STAGES)
+    prof, build = profile_update.profile(2000, 0.03, "cpu")
+    assert [r.name for r in prof.rows] == [
+        "layer.update", "update.diff", "update.extract", "update.churn",
+        "update.merge"]
+    assert all(r.calls == 1 and r.host_ms > 0 and r.device_ms is None
+               for r in prof.rows)
     assert build.host_ms > 0 and build.device_ms is None
     profile_update.main(["2000", "0.01", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "equals update and a fresh build" in out and "emit_diff" in out
+    assert "equals a fresh build" in out and "update.extract" in out
+
+
+def _annotation(name, ts, dur):
+    return {"cat": "user_annotation", "ph": "X", "name": name, "ts": ts,
+            "dur": dur}
+
+
+def _launch(corr, ts, name="kernel", dur=2.0):
+    """A launch at ``ts`` and its device operation of ``dur`` us."""
+    return [{"cat": "cuda_runtime", "ph": "X", "name": "cudaLaunchKernel",
+             "ts": ts, "dur": 1.0, "args": {"correlation": corr}},
+            {"cat": "kernel", "ph": "X", "name": name, "ts": ts + 3.0,
+             "dur": dur, "args": {"correlation": corr}}]
+
+
+@pytest.mark.parametrize("on_device", [True, False])
+def test_span_rows_of_a_hand_made_trace(on_device):
+    """Two calls of a scan (us): an operation goes to the innermost span
+    open at its launch; a layer's host time excludes its stages; an
+    operation outside every span counts in the window only, a padding
+    kernel nowhere; on the CPU the device columns are None."""
+    events = [
+        _annotation("layer.scan", 0.0, 100.0),
+        _annotation("scan.pass1", 10.0, 20.0),
+        _annotation("scan.canonical", 50.0, 40.0),
+        _annotation("layer.scan", 200.0, 60.0),
+        _annotation("scan.pass1", 210.0, 10.0),
+        _annotation("frame", 55.0, 5.0),               # not a port span
+        {"cat": "gpu_user_annotation", "ph": "X", "name": "scan.pass1",
+         "ts": 12.0, "dur": 50.0},
+        *_launch(1, 15.0, dur=4.0),                    # scan.pass1
+        *_launch(2, 40.0),                             # layer.scan, self
+        *_launch(3, 60.0, dur=10.0),                   # scan.canonical
+        *_launch(4, 95.0),                             # layer.scan, self
+        *_launch(5, 150.0, dur=6.0),                   # outside the spans
+        *_launch(6, 215.0, dur=8.0),                   # scan.pass1
+        *_launch(7, -20.0, "at::cuda::spin_kernel(long)", 1000.0),
+    ]
+    got = profiling.span_rows(events, reps=2, on_device=on_device)
+    # host self (us): layer.scan 100 - 20 - 40 + 60 - 10, pass1 20 + 10
+    want = [("layer.scan", 1.0, 0.045, 0.002, 1.0),
+            ("scan.pass1", 1.0, 0.015, 0.006, 1.0),
+            ("scan.canonical", 0.5, 0.02, 0.005, 0.5)]
+    assert [r.name for r in got.rows] == [w[0] for w in want]
+    for row, (_, calls, host, dev, ops) in zip(got.rows, want):
+        assert row.calls == calls
+        assert row.host_ms == pytest.approx(host)
+        if on_device:
+            assert (row.device_ms, row.device_ops) == (
+                pytest.approx(dev), ops)
+        else:
+            assert row.device_ms is None and row.device_ops is None
+    if on_device:
+        assert got.device_ms == pytest.approx(0.016)
+        assert got.device_ops == 3.0
+        # less the operation launched outside every span
+        assert sum(r.device_ops for r in got.rows) == 3.0 - 0.5
+    else:
+        assert got.device_ms is None and got.device_ops is None
 
 
 def test_profiling_utilities_on_the_cpu(tmp_path):
@@ -222,7 +237,6 @@ def test_profiling_utilities_on_the_cpu(tmp_path):
     assert profiling.device_memory_stats("cpu") is None
     with pytest.raises(ValueError):
         profiling.peak_memory(lambda: None, device="cpu")
-    assert profiling.pipelined_ms(lambda: None, "cpu") >= 0.0
 
 
 def test_scan_visualizer_roles_match_jax():
@@ -331,20 +345,3 @@ def test_device_readings_take_the_median_of_fixed_windows(monkeypatch,
         assert (ms, ops) == (0.1, 1.0)
     else:
         assert ms == 0.08
-
-
-def test_stage_times_hold_each_prefix_to_the_one_before(monkeypatch):
-    seen = []
-
-    def fake_device_time(fn, reps=5, min_ops=0.0):
-        seen.append(min_ops)
-        return fn()
-
-    monkeypatch.setattr(profiling, "device_time", fake_device_time)
-    monkeypatch.setattr(profiling, "pipelined_ms", lambda fn, dev: 1.0)
-    prefixes = [lambda: (1.0, 10.0), lambda: (2.0, 14.0),
-                lambda: (3.0, 20.0)]
-    rows = profile_step.stage_times(("a", "b", "c"), prefixes,
-                                    torch.device("cuda"))
-    assert seen == [0.0, 10.0, 14.0]
-    assert [r.device_ops for r in rows] == [10.0, 14.0, 20.0]

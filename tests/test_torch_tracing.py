@@ -1,16 +1,16 @@
 """The port's spans and counters (``broadphase_tpu_torch.profiling``):
-under ``profiling.tracing()`` ``layer.build``, ``layer.scan`` and
-``layer.merge`` open exactly their registered stage spans, each inside
-its layer; with tracing off they open none and keep no counter; the
-scan's and the merge's counters equal what they computed; and tracing
-changes no output."""
+under ``profiling.tracing()`` ``layer.build``, ``layer.scan``,
+``layer.merge`` and ``update.update`` open exactly their registered stage
+spans, each inside its layer; with tracing off they open none and keep no
+counter; the scan's and the merge's counters equal what they computed;
+and tracing changes no output."""
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from broadphase_tpu_torch import bench_caps, layer, profiling
+from broadphase_tpu_torch import bench_caps, layer, profiling, update
 from broadphase_tpu_torch import index as tidx
 from broadphase_tpu_torch.ops import pairsort, treesort
 from broadphase_tpu_torch.ops.prep import prep_runs
@@ -40,6 +40,8 @@ MERGES = {
     "sorted": ("build", ["merge.cols", "merge.kernel", "merge.unpack"]),
     "append": ("extend", ["merge.kernel"]),
 }
+UPDATE_STAGES = ["update.diff", "update.extract", "update.churn",
+                 "update.merge"]
 
 
 @pytest.fixture(autouse=True)
@@ -223,6 +225,54 @@ def test_merge_with_tracing_off_opens_no_span_and_changes_no_output(
     assert all(torch.equal(a, b) for a, b in zip(traced, plain))
 
 
+def _tracked_move(name):
+    """(spec, a tracked scene of N objects, the next frame's system box and
+    bounds, with a tenth of the objects moved across cells)."""
+    spec = getattr(tidx, name)
+    smin, smax, bmin, bmax, ids = bench_caps.bench_scene(spec.dim, N,
+                                                         seed=9)
+    tracked = update.build_tracked(spec, smin, smax, bmin, bmax,
+                                   ids.astype(np.int64),
+                                   out_capacity=N * spec.fanout,
+                                   device="cpu")
+    rng = np.random.default_rng(4)
+    jump = (rng.uniform(-5.0, 5.0, bmin.shape).astype(np.float32)
+            * (rng.random(N) < 0.1)[:, None])
+    return spec, tracked, (smin, smax, bmin + jump, bmax + jump)
+
+
+def _update(spec, tracked, frame):
+    return update.update(spec, tracked, *frame, 8 * N)
+
+
+@pytest.mark.parametrize("name", ["Index64_3D", "Index32_2D"])
+def test_update_opens_its_stages_inside_it(name):
+    spec, tracked, frame = _tracked_move(name)
+    assert _spans(lambda: _update(spec, tracked, frame)) == (
+        [("layer.update", None)]
+        + [(s, "layer.update") for s in UPDATE_STAGES])
+
+
+@pytest.mark.parametrize("name", ["Index64_3D", "Index32_2D"])
+def test_update_with_tracing_off_opens_no_span_and_changes_no_output(
+        monkeypatch, name):
+    spec, tracked, frame = _tracked_move(name)
+    with profiling.tracing():
+        traced = _update(spec, tracked, frame)
+    profiling.counters()
+
+    def refuse(name):
+        raise AssertionError(f"span {name!r} opened with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    plain = _update(spec, tracked, frame)
+    assert profiling.counters() == {}
+    assert not bool(plain.state.overflow)
+    assert not torch.equal(plain.state.keys, tracked.state.keys)
+    assert all(torch.equal(a, b) for a, b in zip(traced.state, plain.state))
+    assert all(torch.equal(a, b) for a, b in zip(traced[1:], plain[1:]))
+
+
 @pytest.mark.parametrize("traced", [True, False])
 def test_build_counts_its_sort_passes_only_under_tracing(traced):
     """On the CPU the tree sort's plain version counts the radix passes
@@ -288,6 +338,7 @@ def test_registered_names_are_unique_and_stages_follow_their_layer():
             "k9.launches", "build.sort_passes"} <= set(profiling.COUNTERS)
     assert {"layer.merge", "merge.cols", "merge.kernel",
             "merge.unpack"} <= set(profiling.SPANS)
+    assert {"layer.update", *UPDATE_STAGES} <= set(profiling.SPANS)
     for name in profiling.SPANS:
         group, _ = name.split(".")
         if group != "layer":
