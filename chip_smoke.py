@@ -86,7 +86,8 @@ from broadphase_tpu_torch.ops.expand2 import (expand_pairs_prepped,
                                               expand_pairs_prepped_plain)
 from broadphase_tpu_torch.ops.merge import (merge_cancel_compact,
                                             merge_cancel_compact_plain)
-from broadphase_tpu_torch.ops.pairsort import pair_sort, pair_sort_plain
+from broadphase_tpu_torch.ops.pairsort import (BUCKET_KEYS, pair_sort,
+                                               pair_sort_plain)
 from broadphase_tpu_torch.ops.prep import prep_runs, prep_runs_plain
 from broadphase_tpu_torch.ops.runends import (adjacent_lca_depth,
                                               alpha_meta, run_ends_plain,
@@ -101,7 +102,8 @@ K4_NAMES = ("expand_partitioned_kernel<true>",
 K7_NAMES = ("expand_partitioned_kernel<false>",
             "expand_partitioned_kernelILb0E")
 K8_NAMES = ("pairsort_bound_kernel", "pairsort_pack_kernel",
-            "pairsort_pass_kernel", "pairsort_finish_kernel")
+            "pairsort_hist_kernel", "pairsort_scatter_kernel",
+            "pairsort_spill_kernel", "pairsort_bucket_kernel")
 K9_NAMES = ("treesort_bound_kernel", "treesort_pack_kernel",
             "treesort_pass_kernel", "treesort_finish_kernel")
 KERNELS = {
@@ -220,7 +222,8 @@ def device_ms_by_layer(run, reps: int = 5):
 
 
 def kernel_device_ms(fn, names=None, reps: int = 10, floor_ms: float = 0.0):
-    """(device time per call of fn() in ms, windows that read low):
+    """(device time per call of fn() in ms, windows that read low, device
+    operations per call):
     torch.profiler, after one warm-up call, of the kernels whose name
     holds one of ``names``, or all device work when names is None; the
     median over DEVICE_WINDOWS windows of reps calls each, none thrown
@@ -242,7 +245,7 @@ def kernel_device_ms(fn, names=None, reps: int = 10, floor_ms: float = 0.0):
           f"counted {launches}")
     low = sum(w_ms < floor_ms or w_ops < launches
               for w_ms, w_ops in per_window)
-    return ms, low
+    return ms, low, ops
 
 
 def flushed_ms(fn, flush, n: int = 100) -> float:
@@ -552,18 +555,24 @@ def adversarial(dev):
             + expand_adversarial(dev) + pair_sort_adversarial(dev))
 
 
-def compare_pair_sort(a, b, valid, cap, bound=None) -> float:
+def compare_pair_sort(a, b, valid, cap, bound=None, spilled=None) -> float:
     """Kernel 8 against its plain version: (a, b, count, total) and the
-    passes counter, exact.  Run it with no launch count open: it drains
+    passes and spilled counters, exact; the spilled keys also against
+    ``spilled`` where given.  Run it with no launch count open: it drains
     the port's counters.  Returns max_abs_err."""
     with profiling.tracing():
         profiling.counters()
         got = pair_sort(a, b, valid, cap, bound)
-        passes = profiling.counters().get("scan.sort_passes")
+        counted = profiling.counters()
     want = pair_sort_plain(a, b, valid, cap, bound)
     err = max_abs_err(got, want[:4])
+    passes = counted.get("scan.sort_passes")
     check(passes == int(want[4]), f"pair_sort: {passes} passes, the plain "
           f"version plans {int(want[4])}")
+    spills, plain_spills = counted.get("scan.sort_spilled"), int(want[5])
+    check(spills == plain_spills and spilled in (None, plain_spills),
+          f"pair_sort: {spills} keys spilled, the plain version plans "
+          f"{plain_spills}, the case {spilled}")
     return err
 
 
@@ -575,7 +584,12 @@ def pair_sort_adversarial(dev):
     repeated everywhere too), digits every key shares, an id bound wider
     than the ids, the emission buffer compacted into a pair buffer that
     the valid lanes fill exactly, overflow by one and leave short, empty
-    input and output, and two calls in a row on one stream."""
+    input and output, two calls in a row on one stream, and the buckets:
+    one at the most keys shared memory holds and one key over it, with
+    4-byte and with 8-byte offsets, 200k distinct pairs sharing one a
+    (alone: the buckets follow the keys' range; beside other pairs: one
+    bucket spills), and one pair repeated past a bucket beside other
+    pairs."""
     gen = torch.Generator(device=dev).manual_seed(8)
     tile = 4096
 
@@ -652,7 +666,42 @@ def pair_sort_adversarial(dev):
     got2 = pair_sort(b, a, v2, 40 * tile)
     max_abs_err(got1, pair_sort_plain(a, b, v1, 40 * tile)[:4])
     max_abs_err(got2, pair_sort_plain(b, a, v2, 40 * tile)[:4])
-    return cases + 2
+    cases += 2
+
+    # the buckets: m keys (a = 3, distinct b) beside 8000 pairs whose a,
+    # from 2^11 (keys within 2^32 of each other: 4-byte offsets) or from
+    # 2^19 (8-byte offsets, half the keys a bucket), never shares a = 3's
+    # bucket
+    def one_a(m, others=8000, a_from=2 ** 11):
+        b = torch.randperm(2 ** 20, generator=gen, device=dev)[:m]
+        a = torch.cat([torch.full((m,), 3, device=dev),
+                       a_from + ids(a_from - 2, others)])
+        return a, torch.cat([b, ids(2 ** 20 - 1, others)])
+
+    def every(a):
+        return torch.ones(a.shape[0], dtype=torch.bool, device=dev)
+
+    for m, a_from, spilled in (
+            (BUCKET_KEYS, 2 ** 11, 0), (BUCKET_KEYS + 1, 2 ** 11,
+                                        BUCKET_KEYS + 1),
+            (BUCKET_KEYS // 2, 2 ** 19, 0),
+            (BUCKET_KEYS // 2 + 1, 2 ** 19, BUCKET_KEYS // 2 + 1),
+            (200_000, 2 ** 11, 200_000)):
+        a, b = one_a(m, a_from=a_from)
+        compare_pair_sort(a, b, every(a), a.shape[0], None, spilled)
+        cases += 1
+    a, b = one_a(200_000, others=0)                 # alone: nothing spills
+    compare_pair_sort(a, b, every(a), a.shape[0], None, 0)
+    # one pair repeated over 3 buckets' worth, beside 20,000 pairs whose a
+    # lies in the top half of 20-bit and of 32-bit ids
+    for half in (2 ** 19, 2 ** 31):
+        a = torch.cat([torch.full((3 * BUCKET_KEYS,), 5, device=dev),
+                       half + ids(half - 2, 20_000)])
+        b = torch.cat([torch.full((3 * BUCKET_KEYS,), 9, device=dev),
+                       ids(2 * half - 2, 20_000)])
+        compare_pair_sort(a, b, every(a), a.shape[0], None, 3 * BUCKET_KEYS)
+        cases += 1
+    return cases + 1
 
 
 @contextlib.contextmanager
@@ -3266,21 +3315,25 @@ def main() -> int:
 
     def time_kernel(name, wrapper, args, names, moved):
         bound_ms, bound_by = bound(moved)
-        device_ms, low = kernel_device_ms(
+        device_ms, low, ops = kernel_device_ms(
             lambda: wrapper(*args), names, floor_ms=bound_ms / BOUND_SLACK)
         cold_ms = flushed_ms(lambda: wrapper(*args), flush)
         check(min(device_ms, cold_ms) >= bound_ms / BOUND_SLACK,
               f"kernel {name}: device {device_ms:.4f} ms or flushed "
               f"{cold_ms:.4f} ms reads below its bound {bound_ms:.4f} ms / "
               f"{BOUND_SLACK}")
-        return device_ms, cold_ms, bound_ms, bound_by, low
+        return device_ms, cold_ms, bound_ms, bound_by, low, ops
 
     rows = []
     for name, (wrapper, src, rep, path, names) in KERNELS.items():
         args, plain, moved, library = timed[name]
         ms = cuda_ms(lambda: wrapper(*args))
-        device_ms, cold_ms, bound_ms, bound_by, low = time_kernel(
+        device_ms, cold_ms, bound_ms, bound_by, low, ops = time_kernel(
             name, wrapper, args, names, moved)
+        # kernel 8's chain: every device operation of a call, its clear
+        # included (a step makes one call)
+        all_ops = kernel_device_ms(lambda: wrapper(*args))[2] \
+            if name == "pair_sort" else None
         plain_ms = cuda_ms(lambda: plain(*args))
         library_ms = library_device_ms = None
         if library is not None:
@@ -3293,10 +3346,13 @@ def main() -> int:
               f"{cold_ms:.3f} ms, call {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({moved / 1e6:.1f} "
               f"MB), library {lib}; {launches[path][name]} launches per "
-              f"{path}")
+              f"{path}; {ops:.0f} kernels a call"
+              + ("" if all_ops is None else
+                 f", {all_ops:.0f} device operations a call"))
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[path][name],
                      "max_abs_err": errs[name], "ms": ms,
+                     "kernels_a_call": ops, "device_ops_a_call": all_ops,
                      "device_ms": device_ms,
                      "device_windows_low": low, "flushed_ms": cold_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3304,7 +3360,7 @@ def main() -> int:
                      "library_device_ms": library_device_ms})
     # the v2 scan's kernel 3 and the JAX-shaped kernel 7, timed alike
     for name, (wrapper, args, plain, moved, names) in extra.items():
-        device_ms, cold_ms, bound_ms, _, low = time_kernel(
+        device_ms, cold_ms, bound_ms, _, low, _ = time_kernel(
             name, wrapper, args, names, moved)
         print(f"kernel {name}: exact at the 1M shapes; device {device_ms:.3f}"
               f" ms ({low} of {DEVICE_WINDOWS} profiler windows low), flushed "

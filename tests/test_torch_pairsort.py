@@ -5,8 +5,11 @@ the card) against the pair sort the port ran before it (``torch.sort`` of
 ``((a - 2^31) << 32) + b`` and the dedup by kernel 5's plain version) and
 against ``broadphase_tpu.layer.canonical_pairs``; exact.  Also the
 emission compaction folded into the chain at and around the pair
-capacity, the passes counter and the dispatch.
+capacity, the passes and spilled counters, the plan of buckets (against
+the chain's constants and at the 1M step's numbers) and the dispatch.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -107,51 +110,97 @@ def test_pair_sort_drops_repeated_pairs(width):
     _assert_equal(got, _torch_sort_reference(a, b, valid), _jax(a, b, valid))
 
 
-@pytest.mark.parametrize("kept", ["under", "exact", "one_over"])
+@pytest.mark.parametrize("kept", ["under", "exact", "one_over",
+                                  "spill_past_the_cut"])
 def test_folded_compaction_keeps_the_same_prefix_and_overflow(kept):
     """A canonical scan whose emission buffer is wider than its pair buffer
     compacts inside kernel 8: the same first ``pair_capacity`` valid
-    emissions and the same overflow flag as kernel 5 then the sort."""
+    emissions and the same overflow flag as kernel 5 then the sort.  The
+    buckets are planned over those lanes alone: past the cut, twice a
+    bucket's keys that share one ``a`` spill nothing."""
     pair_cap, emit_cap = 1000, 4000
     rng = np.random.default_rng(5)
+    if kept == "spill_past_the_cut":
+        emit_cap = pair_cap + 2 * pairsort.BUCKET_KEYS
     n_valid = {"under": pair_cap - 37, "exact": pair_cap,
-               "one_over": pair_cap + 1}[kept]
+               "one_over": pair_cap + 1,
+               "spill_past_the_cut": emit_cap}[kept]
     valid_np = np.zeros(emit_cap, bool)
     valid_np[rng.choice(emit_cap, n_valid, replace=False)] = True
     a, b = (torch.as_tensor(_ids(rng, 2 ** 20 - 1, emit_cap))
             for _ in range(2))
     # repeats inside and across the cut, as the v2 expansion emits them
     a[1::7], b[1::7] = a[::7][:len(a[1::7])], b[::7][:len(b[1::7])]
+    if kept == "spill_past_the_cut":
+        a[pair_cap:] = 12345
+        b[pair_cap:] = torch.as_tensor(rng.permutation(2 ** 20)[
+            :emit_cap - pair_cap])
     a, b = torch.where(torch.as_tensor(valid_np), a, PAD_ID), \
         torch.where(torch.as_tensor(valid_np), b, PAD_ID)
     valid = torch.as_tensor(valid_np)
     no = torch.zeros((), dtype=torch.bool)
-    got = layer._finish_pairs(a, b, valid, pair_cap, emit_cap, no, no, True)
+    with profiling.tracing():
+        got = layer._finish_pairs(a, b, valid, pair_cap, emit_cap, no, no,
+                                  True)
     (ca, cb), ccnt = stream_compact_plain(valid, (a, b))
     ca, cb = ca[:pair_cap], cb[:pair_cap]
     want = _torch_sort_reference(ca, cb, ca != PAD_ID)
     _assert_equal(got, want)
-    assert bool(got.overflow) == (int(ccnt) > pair_cap) == (kept == "one_over")
+    assert bool(got.overflow) == (int(ccnt) > pair_cap) == (kept in (
+        "one_over", "spill_past_the_cut"))
     assert got.pairs_a.shape == (pair_cap,)
+    assert profiling.counters()["scan.sort_spilled"] == 0
+
+
+# the keys of the cases whose buckets spill: twice a bucket's keys share
+# one a, at the foot of 20-bit ids and at the top of 32-bit ids, beside
+# 3000 pairs of other ids
+SPILLED = {"one_a": 2 * pairsort.BUCKET_KEYS,
+           "u32_one_a": 2 * pairsort.BUCKET_KEYS}
+
+
+def _one_a(rng, a_one, b_top, others_a):
+    """2 x BUCKET_KEYS pairs (a_one, distinct b up to b_top), then a pair
+    (a, an id up to b_top) for each a of ``others_a``."""
+    m = 2 * pairsort.BUCKET_KEYS
+    b = rng.permutation(np.unique(rng.integers(0, b_top + 1, 2 * m)))[:m]
+    a = np.concatenate([np.full(m, a_one), others_a])
+    b = np.concatenate([b, _ids(rng, b_top, len(others_a))])
+    return (torch.as_tensor(a.astype(np.int64)),
+            torch.as_tensor(b.astype(np.int64)))
 
 
 @pytest.mark.parametrize("case,top,passes", [
     ("zero", 0, 0), ("one", 1, 1), ("byte", 2 ** 8 - 1, 2),
     ("1M_ids", 2 ** 20 - 1, 5), ("2^24", 2 ** 24, 7), ("u32", 2 ** 32 - 2, 8),
     # ids 2^25 + [0, 2^12): the digits of bits 16-23 and 40-51 never vary
-    ("offset_ids", None, 4)])
+    ("offset_ids", None, 4),
+    # 100 pairs: one bucket
+    ("tiny", None, 2),
+    # one a with more distinct b than a bucket holds: its bucket spills
+    ("one_a", None, 5), ("u32_one_a", None, 8)])
 def test_sort_passes_counts_the_passes_that_work(case, top, passes):
     rng = np.random.default_rng(3)
-    if top is None:
+    if case == "offset_ids":
         a, b = (torch.as_tensor(2 ** 25 + rng.integers(0, 2 ** 12, N))
                 for _ in range(2))
+    elif case == "tiny":
+        a, b = (torch.as_tensor(_ids(rng, 2 ** 8 - 1, 100)) for _ in range(2))
+    elif case == "one_a":       # the others' a far from the one a's bucket
+        a, b = _one_a(rng, 7, 2 ** 20 - 1, 2 ** 19 + _ids(rng, 2 ** 19 - 1, N))
+    elif case == "u32_one_a":
+        a, b = _one_a(rng, 2 ** 32 - 2, 2 ** 32 - 2, _ids(rng, 2 ** 31, N))
     else:
         a, b = (torch.as_tensor(_ids(rng, top, N)) for _ in range(2))
-    valid = torch.ones(N, dtype=torch.bool)
+    valid = torch.ones(a.shape[0], dtype=torch.bool)
     with profiling.tracing():
         got = layer.canonical_pairs(a, b, valid)
-    assert profiling.counters() == {"scan.sort_passes": passes}
+    assert profiling.counters() == {"scan.sort_passes": passes,
+                                    "scan.sort_spilled": SPILLED.get(case, 0)}
     _assert_equal(got, _torch_sort_reference(a, b, valid))
+    if case == "tiny":
+        w = pairsort.width_of(int(torch.maximum(a, b).max()))
+        assert len(pairsort.plan_buckets((a << w) | b)[1]) == 1
 
 
 def test_a_wider_id_bound_changes_only_the_passes():
@@ -161,8 +210,37 @@ def test_a_wider_id_bound_changes_only_the_passes():
     with profiling.tracing():
         narrow = layer.canonical_pairs(a, b, valid)
         wide = pairsort.pair_sort(a, b, valid, N, torch.tensor(2 ** 31))
-    assert profiling.counters() == {"scan.sort_passes": 3 + 4}
+    assert profiling.counters() == {"scan.sort_passes": 3 + 4,
+                                    "scan.sort_spilled": 0}
     _assert_equal(wide, narrow)
+
+
+@pytest.mark.parametrize("live,span,shift,buckets", [
+    # the 1M step: 8.53M live pairs over 20-bit ids, 3907 buckets of 2^8 a
+    (8_531_205, 999_999 << 20, 28, 3907),
+    # ids offset by 2^25 (26-bit ids, 52-bit keys): offsets past 32 bits,
+    # so half the target
+    (8_531_205, 1 << 46, 33, 8193),
+    (100, 1 << 40, 41, 1),                       # tiny: one bucket
+    (10 ** 6, 0, 0, 1),                          # every key equal
+    (2 ** 31 - 1, 2 ** 64 - 1, 51, 8192)])      # the most buckets asked
+def test_bucket_shift_plans_buckets_of_at_most_the_target(live, span, shift,
+                                                          buckets):
+    assert pairsort.bucket_shift(live, span) == shift
+    assert (span >> shift) + 1 == buckets
+    assert live / buckets <= pairsort.BUCKET_TARGET or (
+        buckets == pairsort.MAX_BUCKETS // 2 or span == 0)
+
+
+def test_plain_plan_mirrors_the_chain_constants():
+    src = (pairsort._cuda.SRC_DIR / "pairsort.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert pairsort.BUCKET_KEYS == const("kThreads") * const("kBucketRows")
+    assert pairsort.BUCKET_TARGET == const("kTarget")
+    assert pairsort.MAX_BUCKETS == const("kMaxBuckets")
 
 
 @pytest.mark.parametrize("bound", [None, 2 ** 20 - 1])

@@ -157,6 +157,8 @@ def test_scan_counters_equal_the_result_and_the_prep_total(case):
         want["scan.sort_passes"] = int(pairsort.plan_passes(
             (res.pairs_a[:n] << w) | res.pairs_b[:n], w))
         assert want["scan.sort_passes"] == 3
+        # a few thousand pairs: every bucket fits in shared memory
+        want["scan.sort_spilled"] = 0
     assert got == want
     assert 0 < got["scan.pairs"] <= got["scan.emitted"]
 
@@ -335,7 +337,8 @@ def test_registered_names_are_unique_and_stages_follow_their_layer():
     assert len(set(profiling.SPANS)) == len(profiling.SPANS)
     assert len(set(profiling.COUNTERS)) == len(profiling.COUNTERS)
     assert {"k8.launches", "scan.sort_passes", "merge.entries",
-            "k9.launches", "build.sort_passes"} <= set(profiling.COUNTERS)
+            "k9.launches", "build.sort_passes",
+            "scan.sort_spilled"} <= set(profiling.COUNTERS)
     assert {"layer.merge", "merge.cols", "merge.kernel",
             "merge.unpack"} <= set(profiling.SPANS)
     assert {"layer.update", *UPDATE_STAGES} <= set(profiling.SPANS)
