@@ -15,7 +15,12 @@ limit in ``limits.json``:
   nearest hit, in world units: the larger of the gap between the two
   distances and the gap between the reference's distance of the ball the
   program named and the nearest; ``MISS`` where one side hit and the
-  other did not, or the flags differ.
+  other did not, the flags differ, or the program named an id that no
+  object of the scene has.
+
+The reference takes the scene's own ids (``scene.ids``, copied to the
+host once a cell), which need not be the rows 0..n-1: an engine hands
+the broadphase its own handles.
 
 The control (``control.py``) puts the reference computed in bfloat16 in
 the program's place and goes through the same comparisons.
@@ -52,6 +57,23 @@ class FrameInputs:
             self.ray_unit = cell.ray_units[frame.number % period]
 
 
+def scene_ids(cell) -> np.ndarray:
+    """The scene's ids on the host, copied from the device once a cell
+    and kept on it."""
+    ids = getattr(cell, "host_ids", None)
+    if ids is None:
+        ids = cell.host_ids = cell.scene.ids.cpu().numpy()
+    return ids
+
+
+def row_of(ids: np.ndarray, obj_id: int) -> int:
+    """The row of the object whose id is ``obj_id`` among the scene's
+    ``ids``; -1 where no object has it."""
+    order = np.argsort(ids, kind="stable")
+    i = int(np.searchsorted(ids, obj_id, sorter=order))
+    return int(order[i]) if i < len(ids) and ids[order[i]] == obj_id else -1
+
+
 class FrameRef:
     """The reference's outputs of one frame, each computed when first
     asked for, in the precision ``rnd`` (``ref.exact`` or ``ref.bf16``)."""
@@ -67,7 +89,7 @@ class FrameRef:
             self._tree = ref.build(
                 self.spec, self.cell.scene.system_min,
                 self.cell.scene.system_max, i.bounds_min, i.bounds_max,
-                np.arange(len(i.bounds_min)), c["slots_per_axis"],
+                scene_ids(self.cell), c["slots_per_axis"],
                 c["min_depth"], self.cell.caps.tree, self.rnd)
         return self._tree
 
@@ -86,7 +108,7 @@ class FrameRef:
         if self._pick is None:
             i = self.inputs
             self._pick = ref.pick(
-                self.distances(), np.arange(len(i.bounds_min)),
+                self.distances(), scene_ids(self.cell),
                 self.cell.scene.system_min, self.cell.scene.system_max,
                 i.bounds_min, i.bounds_max,
                 self.cell.traffic["ray"]["max_distance"],
@@ -152,13 +174,16 @@ def pairs_diff(got: ref.Pairs, want: ref.Pairs, canonical: bool) -> int:
             + abs(len(got_p) - want.count))
 
 
-def pick_gap(got: ref.Pick, want: ref.Pick, distances: np.ndarray) -> float:
+def pick_gap(got: ref.Pick, want: ref.Pick, distances: np.ndarray,
+             ids: np.ndarray) -> float:
+    """``distances`` and ``ids`` by row: the reference's distance of
+    each object and its id."""
     if got.found != want.found or got.overflow != want.overflow:
         return MISS
     if not want.found:
         return 0.0
-    named = distances[got.obj_id] if 0 <= got.obj_id < len(distances) \
-        else np.inf
+    row = row_of(ids, got.obj_id)
+    named = distances[row] if row >= 0 else np.inf
     gap = max(abs(got.distance - want.distance), abs(named - want.distance))
     return float(gap) if np.isfinite(gap) else MISS
 
@@ -174,7 +199,7 @@ def compare(cell, frame_ref: FrameRef, host: dict) -> Dict[str, float]:
                                        cell.traffic["canonical"])
     if "pick" in host:
         got["pick_gap"] = pick_gap(host["pick"], frame_ref.pick(),
-                                   frame_ref.distances())
+                                   frame_ref.distances(), scene_ids(cell))
     return got
 
 

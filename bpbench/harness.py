@@ -256,6 +256,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
         if t1 - start >= seconds:
             break
     elapsed = t1 - start
+    if len(held) < keep:
+        # the host ran slower than in the warm-up and the window closed
+        # before a sampled frame: its last frame is checked in its place
+        held.append((fr, out))
     del out
     _sync(device)
     peak = (torch.cuda.max_memory_allocated(device)

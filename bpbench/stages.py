@@ -9,9 +9,9 @@ harness's traced frames run with it off, so every metric they give reads
 as it did before the program had spans.  This module traces the same
 frames once more, with it on.  The first reader that needs the result
 (``build.host_ms``, ``scan.host_ms``, ``build.idle_ms``,
-``scan.idle_ms``, ``host.syncs_per_frame``, ``scan.kept_share``) runs the
-pass, once a run, after the window and the check; the result is kept on
-the run for the others.  A reader sees the run's window, trace,
+``scan.idle_ms``, ``host.syncs_per_frame``, ``scan.kept_share``,
+``scan.spilled_share``) runs the pass, once a run, after the window and
+the check; the result is kept on the run for the others.  A reader sees the run's window, trace,
 configuration and device; the cell and the seed it takes from the
 command line that ``run.py`` parses (``--workload``, ``--seed``).  Where
 the run has no trace, no such command line, or a program without

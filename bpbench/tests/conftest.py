@@ -21,10 +21,14 @@ TINY = {
     "boxes3d_1M": {"objects": 3000,
                    "scene": {"kind": "boxes", "density": 2.4e-5,
                              "size_min": 1.0, "size_max": 10.0}},
+    "boxes3d_1M_wide": {"objects": 3000,
+                        "scene": {"kind": "handles", "density": 2.4e-5,
+                                  "size_min": 1.0, "size_max": 10.0}},
     "ballpit2d_10k": {"objects": 600},
 }
 CELLS = ["boxes3d_1M.rebuild", "ballpit2d_10k.frame",
-         "boxes3d_1M.update_1pct", "boxes3d_1M.rebuild_unsorted"]
+         "boxes3d_1M.update_1pct", "boxes3d_1M.rebuild_unsorted",
+         "boxes3d_1M_wide.rebuild"]
 
 
 # cells the harness runs that BENCHMARK.json leaves out for now (their

@@ -3,8 +3,9 @@
 The control is the reference computed in bfloat16 in the program's
 place; each fault breaks the timed path underneath a run that skips the
 look for a card: a step that returns its state unchanged, half of the
-batch left out, an answer altered where it is produced.  (No cell runs
-on more than one card, so no exchange between cards can be left out.)"""
+batch left out, an answer altered where it is produced, and where the
+ids are handles, the handles' version bits dropped.  (No cell runs on
+more than one card, so no exchange between cards can be left out.)"""
 
 import time
 
@@ -13,6 +14,7 @@ import torch
 
 from bpbench import check, control, harness
 from broadphase_tpu_torch import layer, query, update
+from broadphase_tpu_torch.layer import PAD_ID
 
 from conftest import CELLS, all_cells, tiny
 
@@ -32,12 +34,16 @@ def _run(cell):
 
 
 def _stale_build(monkeypatch):
-    real, first = layer.build, []
+    """Each build hands back the tree of the build before it: the state
+    unchanged by the frame.  (Consecutive frames play different ring
+    frames, so the check sees it whichever frame it samples; a tree
+    frozen at the first build would pass where the sample lands on a
+    frame that replays the first.)"""
+    real, states = layer.build, []
 
     def build(*a, **k):
-        if not first:
-            first.append(real(*a, **k))
-        return first[0]
+        states.append(real(*a, **k))
+        return states.pop(0) if len(states) > 1 else states[0]
     monkeypatch.setattr(layer, "build", build)
 
 
@@ -85,11 +91,29 @@ def _altered_pick(monkeypatch):
     monkeypatch.setattr(query, "pick_ray", pick_ray)
 
 
+def _version_bits_dropped(monkeypatch):
+    """The tree's ids cut to the handles' 20 index bits, the rows: a
+    program that takes ids for rows."""
+    real = layer.build
+
+    def build(*a, **k):
+        state = real(*a, **k)
+        ids = torch.where(state.ids != PAD_ID, state.ids & 0xF_FFFF,
+                          state.ids)
+        return state._replace(ids=ids)
+    monkeypatch.setattr(layer, "build", build)
+
+
 FAULTS = [
     ("boxes3d_1M.rebuild", _stale_build),
     ("boxes3d_1M.rebuild", _half_the_pairs),
     ("boxes3d_1M.rebuild", _half_the_objects),
     ("boxes3d_1M.rebuild", _altered_pair),
+    ("boxes3d_1M_wide.rebuild", _stale_build),
+    ("boxes3d_1M_wide.rebuild", _half_the_pairs),
+    ("boxes3d_1M_wide.rebuild", _half_the_objects),
+    ("boxes3d_1M_wide.rebuild", _altered_pair),
+    ("boxes3d_1M_wide.rebuild", _version_bits_dropped),
     ("boxes3d_1M.rebuild_unsorted", _half_the_pairs),
     ("boxes3d_1M.rebuild_unsorted", _altered_pair),
     ("boxes3d_1M.update_1pct", _stale_update),

@@ -18,6 +18,8 @@ from conftest import all_cells, tiny
 NEW = ["build.host_ms", "scan.host_ms", "build.idle_ms", "scan.idle_ms",
        "host.syncs_per_frame", "scan.kept_share"]
 HOST = ["build.host_ms", "scan.host_ms", "scan.kept_share"]
+# read only where the scan sorts its pairs canonically (k8)
+CANONICAL = ["scan.spilled_share"]
 SEED = 2 ** 31 + 17
 CELL = "boxes3d_1M.rebuild"
 
@@ -82,7 +84,8 @@ def test_the_stage_reduction_of_a_hand_made_trace():
     events = ([span("frame", 0, 90)] + harness_frame() + program_spans())
     st = stages.reduce(events, ["layer.build", "layer.scan"],
                        profiling.SPANS, 1, {"scan.pairs": 3,
-                                            "scan.emitted": 4}, 80e-6)
+                                            "scan.emitted": 4,
+                                            "scan.sort_spilled": 1}, 80e-6)
     us = 1e-6
     assert st.frames == 1 and st.ops == 5
     assert st.window_s == pytest.approx(100 * us)
@@ -117,6 +120,7 @@ def test_the_stage_reduction_of_a_hand_made_trace():
         "build.host_ms": 0.046, "scan.host_ms": 0.039,
         "build.idle_ms": 0.012, "scan.idle_ms": 0.020,
         "host.syncs_per_frame": 1.0, "scan.kept_share": 75.0})
+    assert harness._reader("scan.spilled_share")(run) == pytest.approx(25.0)
     assert any("tracing on-cost" in line for line in stages.table(st))
 
 
@@ -143,9 +147,13 @@ def test_a_traced_cpu_run_reports_the_host_metrics(monkeypatch, capfd,
     r = run_tiny(monkeypatch, cell)
     assert r["correct"] is True
     # no device here: the device quantities stay out
-    assert sorted(r["metrics"]) == sorted(HOST)
+    canonical = CANONICAL if cell == "boxes3d_1M.rebuild" else []
+    # the unsorted cell's tail, read per layer, is on the host's clock
+    tail = [] if canonical else ["host.frame_ms_p95"]
+    assert sorted(r["metrics"]) == sorted(HOST + canonical + tail)
     assert 0 < r["metrics"]["scan.kept_share"]["value"] <= 100
     assert all(r["metrics"][m]["value"] > 0 for m in HOST)
+    assert all(0 <= r["metrics"][m]["value"] <= 100 for m in canonical)
     err = capfd.readouterr().err
     assert "build.quantize | layer.build | 1 |" in err
     assert "tracing on-cost" in err

@@ -25,7 +25,8 @@ ROOT = Path(__file__).resolve().parent
 
 class Scene:
     """A scene on its device: the system box (host f32 arrays and device
-    tensors), (n, dim) f32 bounds, int64 ids 0..n-1, and for balls their
+    tensors), (n, dim) f32 bounds, int64 ids (0..n-1, which a scene kind
+    may replace with ids of its own below 2^32 - 1), and for balls their
     centres and radii."""
 
     def __init__(self, system_min, system_max, bounds_min, bounds_max,
