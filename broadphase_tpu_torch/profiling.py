@@ -18,8 +18,8 @@ PyTorch counterparts of ``broadphase_tpu/utils/profiling.py``:
 * :func:`tracing`, :func:`span`, :func:`count` and :func:`counters`: the
   port's own spans at the stages of ``layer.build``, ``layer.scan``,
   ``layer.merge`` and ``update.update`` and its counters (emissions,
-  pairs, sort passes and spilled sort keys, merged entries, kernel
-  launches), off by default;
+  pairs, sort passes and spilled sort keys, merged entries, an update's
+  changed objects and churn entries, kernel launches), off by default;
 * :func:`span_profile`: a call's host and device time in each of those
   spans (the stage profilers' rows, ``tools/profile_step.py`` and
   ``tools/profile_update.py``).
@@ -218,12 +218,14 @@ SPANS = ("layer.build", "build.quantize", "build.emit", "build.sort",
 # the pairs it keeps, the 8-bit digits on which its canonical pair sort's
 # keys differ, the entries a merge leaves in its layer, the radix passes
 # of the build's tree sort that did work, the keys of the pair sort's
-# buckets too large for shared memory, and each kernel's launches (k7:
+# buckets too large for shared memory, the objects whose signature an
+# update found changed and the churn entries (tombstones and inserts) it
+# handed to the merge, and each kernel's launches (k7:
 # ``expand_pairs_entries``; k8: the pair sort's chain; k9: the tree
 # sort's chain).
 COUNTERS = ("scan.emitted", "scan.pairs", "scan.sort_passes",
-            "merge.entries", "build.sort_passes", "scan.sort_spilled"
-            ) + tuple(
+            "merge.entries", "build.sort_passes", "scan.sort_spilled",
+            "update.changed", "update.churn_entries") + tuple(
                 f"k{k}.launches" for k in range(1, 10))
 
 _NO_SPAN = contextlib.nullcontext()

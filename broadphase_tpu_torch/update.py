@@ -194,7 +194,10 @@ def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
                  ) -> _Churn:
     """Signature diff, object-granular extraction and the sorted churn
     buffer (tombstones and inserts) of one frame, in the spans
-    ``update.diff``, ``update.extract`` and ``update.churn``."""
+    ``update.diff``, ``update.extract`` and ``update.churn``; under
+    tracing it counts the objects whose signature changed
+    (``update.changed``) and the churn entries handed to the merge
+    (``update.churn_entries``), both 0-dim device tensors."""
     C, OC = churn_cap, obj_cap
     n = tracked.ids.shape[0]
     dev = tracked.ids.device
@@ -222,6 +225,7 @@ def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
         ins_cnt = torch.where(changed, new_cnt, 0).sum()
         obj_cnt = changed.sum(dtype=torch.int64)
         churn_ovf = (tomb_cnt > C) | (ins_cnt > C) | (obj_cnt > OC)
+        profiling.count("update.changed", obj_cnt)
 
     with profiling.span("update.extract"):
         # the changed objects' indices (one 1-column compaction over the n
@@ -273,8 +277,10 @@ def _frame_churn(spec: IndexSpec, tracked: TrackedScene, system_min,
         c_key, c_meta = to_length(c_key, 2 * C), to_length(c_meta, 2 * C)
         order = torch.sort(c_meta, stable=True).indices
         order = order[torch.sort(c_key[order], stable=True).indices]
+        entries = c_cnt.clamp(max=2 * C)
+        profiling.count("update.churn_entries", entries)
         return _Churn((depth_n, tmin_n, tmax_n, cont_n), c_key[order],
-                      c_meta[order], c_cnt.clamp(max=2 * C),
+                      c_meta[order], entries,
                       cell_ovf | churn_ovf | pack_ovf)
 
 

@@ -2,14 +2,15 @@
 under ``profiling.tracing()`` ``layer.build``, ``layer.scan``,
 ``layer.merge`` and ``update.update`` open exactly their registered stage
 spans, each inside its layer; with tracing off they open none and keep no
-counter; the scan's and the merge's counters equal what they computed;
-and tracing changes no output."""
+counter; the scan's, the merge's and the update's counters equal what
+they computed; and tracing changes no output."""
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from bpbench.reference import broadphase as ref
 from broadphase_tpu_torch import bench_caps, layer, profiling, update
 from broadphase_tpu_torch import index as tidx
 from broadphase_tpu_torch.ops import pairsort, treesort
@@ -275,6 +276,53 @@ def test_update_with_tracing_off_opens_no_span_and_changes_no_output(
     assert all(torch.equal(a, b) for a, b in zip(traced[1:], plain[1:]))
 
 
+def _reference_cells(name, smin, smax, bmin, bmax, ids) -> set:
+    """{(id, key)} of the NumPy reference's tree of one frame's bounds."""
+    tree = ref.build(ref.SPECS[name], smin, smax, bmin, bmax, ids, 2, 0,
+                     1 << 30)
+    assert not tree.overflow
+    return set(zip(tree.ids.tolist(), tree.keys.tolist()))
+
+
+@pytest.mark.parametrize("name", ["Index64_3D", "Index32_2D"])
+def test_update_counts_its_changed_objects_and_churn_entries(monkeypatch,
+                                                             name):
+    """``update.changed`` is the objects whose cells (a function of their
+    signature, and telling it apart) differ between the two frames, found
+    from the reference's trees; ``update.churn_entries`` is their old
+    cells (tombstones) and new cells (inserts), the count k6 is handed.
+    Neither is kept with tracing off, and the outputs do not change."""
+    spec, tracked, frame = _tracked_move(name)
+    handed = []
+    real = update.merge_cancel_compact
+
+    def merge(*args):
+        handed.append(int(args[4]))
+        return real(*args)
+
+    monkeypatch.setattr(update, "merge_cancel_compact", merge)
+    with profiling.tracing():
+        traced = _update(spec, tracked, frame)
+    got = profiling.counters()
+    plain = _update(spec, tracked, frame)
+    assert profiling.counters() == {}
+    assert all(torch.equal(a, b) for a, b in zip(traced.state, plain.state))
+    assert all(torch.equal(a, b) for a, b in zip(traced[1:], plain[1:]))
+
+    ids = tracked.ids.numpy()
+    old = _reference_cells(name, frame[0], frame[1],
+                           tracked.bounds_min.numpy(),
+                           tracked.bounds_max.numpy(), ids)
+    new = _reference_cells(name, *frame, ids)
+    changed = {i for i, _ in old ^ new}
+    entries = sum(i in changed for i, _ in old) + sum(
+        i in changed for i, _ in new)
+    assert got == {"update.changed": len(changed),
+                   "update.churn_entries": entries}
+    assert handed == [entries, entries]
+    assert 0 < len(changed) < N and not bool(plain.state.overflow)
+
+
 @pytest.mark.parametrize("traced", [True, False])
 def test_build_counts_its_sort_passes_only_under_tracing(traced):
     """On the CPU the tree sort's plain version counts the radix passes
@@ -337,8 +385,9 @@ def test_registered_names_are_unique_and_stages_follow_their_layer():
     assert len(set(profiling.SPANS)) == len(profiling.SPANS)
     assert len(set(profiling.COUNTERS)) == len(profiling.COUNTERS)
     assert {"k8.launches", "scan.sort_passes", "merge.entries",
-            "k9.launches", "build.sort_passes",
-            "scan.sort_spilled"} <= set(profiling.COUNTERS)
+            "k9.launches", "build.sort_passes", "scan.sort_spilled",
+            "update.changed", "update.churn_entries"
+            } <= set(profiling.COUNTERS)
     assert {"layer.merge", "merge.cols", "merge.kernel",
             "merge.unpack"} <= set(profiling.SPANS)
     assert {"layer.update", *UPDATE_STAGES} <= set(profiling.SPANS)
